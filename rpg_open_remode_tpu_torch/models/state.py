@@ -1,0 +1,131 @@
+"""Engine state: frozen dataclasses of tensors (counterpart of
+``rpg_open_remode_tpu/models/state.py``).
+
+The reference keeps this state as mutable pitched device buffers owned by
+``SeedMatrix`` (include/rmd/seed_matrix.cuh:87-108). Here one frozen
+``SeedState`` is replaced per frame; every image-shaped field is ``[H, W]``.
+``state_from_numpy``/``state_to_numpy`` carry a state across from and to the
+JAX package as numpy arrays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from rpg_open_remode_tpu_torch.config import ConvergenceState, RemodeConfig
+from rpg_open_remode_tpu_torch.utils import se3
+from rpg_open_remode_tpu_torch.utils.camera import PinholeCamera
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneParams:
+    """Per-keyframe scene depth statistics (mvs_device_data.cuh:30-37 plus
+    the derived scalars of seed_matrix.cu:96-104); 0-d float32 tensors."""
+
+    min_depth: torch.Tensor
+    max_depth: torch.Tensor
+    avg_depth: torch.Tensor
+    depth_range: torch.Tensor
+    sigma_sq_max: torch.Tensor
+    epsilon: torch.Tensor
+
+    @classmethod
+    def create(cls, min_depth, max_depth, cfg: RemodeConfig, device=None) -> "SceneParams":
+        min_d = torch.tensor(float(min_depth), dtype=torch.float32, device=device)
+        max_d = torch.tensor(float(max_depth), dtype=torch.float32, device=device)
+        rng = max_d - min_d
+        return cls(
+            min_depth=min_d,
+            max_depth=max_d,
+            avg_depth=(min_d + max_d) / 2.0,
+            depth_range=rng,
+            sigma_sq_max=rng * rng * cfg.sigma_sq_max_factor,
+            # the reference compares sigma_sq against range/1000 directly
+            # (dimensionally odd but load-bearing): seed_matrix.cu:104
+            epsilon=rng * cfg.epsilon_factor,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class SeedState:
+    """Full per-keyframe filter state. Image-shaped fields are ``[H, W]``
+    float32 except ``conv`` (int32); ``f_ref`` is ``[3, H, W]``."""
+
+    ref_img: torch.Tensor            # reference keyframe, [0, 1]
+    sum_templ: torch.Tensor          # patch sums of ref_img
+    const_templ_denom: torch.Tensor  # N*sum(t^2) - sum(t)^2 per pixel
+    f_ref: torch.Tensor              # [3, H, W] normalized bearings
+    mu: torch.Tensor                 # depth mean (along-ray)
+    sigma_sq: torch.Tensor           # depth variance
+    a: torch.Tensor                  # Beta inlier evidence
+    b: torch.Tensor                  # Beta outlier evidence
+    conv: torch.Tensor               # ConvergenceState, int32
+    match_u: torch.Tensor            # last epipolar match, x pixel coord
+    match_v: torch.Tensor            # last epipolar match, y pixel coord
+    T_world_ref: torch.Tensor        # (3, 4) keyframe pose
+    scene: SceneParams
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return tuple(self.mu.shape)
+
+    def converged_fraction(self) -> torch.Tensor:
+        """Fraction of seeds in CONVERGED state (src/reduction.cu:80-173)."""
+        return (self.conv == int(ConvergenceState.CONVERGED)).float().mean()
+
+
+def empty_state(height: int, width: int, cam: PinholeCamera) -> SeedState:
+    """A zeroed state (before any reference frame is set)."""
+    dev = cam.fx.device
+    z = torch.zeros((height, width), dtype=torch.float32, device=dev)
+    return SeedState(
+        ref_img=z,
+        sum_templ=z,
+        const_templ_denom=z,
+        f_ref=cam.bearing_grid(height, width),
+        mu=z,
+        sigma_sq=z,
+        a=z,
+        b=z,
+        conv=torch.zeros((height, width), dtype=torch.int32, device=dev),
+        match_u=z,
+        match_v=z,
+        T_world_ref=se3.identity(dev),
+        scene=SceneParams.create(0.0, 1.0, RemodeConfig(), device=dev),
+    )
+
+
+def state_from_numpy(arrays: dict, device=None) -> SeedState:
+    """Build a state from numpy arrays keyed by field name, ``scene`` a
+    nested dict keyed by SceneParams field (the leaves of a JAX
+    ``SeedState``)."""
+    def t(x):
+        return torch.tensor(np.asarray(x), device=device)
+
+    scene = SceneParams(
+        **{f.name: t(arrays["scene"][f.name]).float()
+           for f in dataclasses.fields(SceneParams)}
+    )
+    leaves = {}
+    for f in dataclasses.fields(SeedState):
+        if f.name == "scene":
+            continue
+        x = t(arrays[f.name])
+        leaves[f.name] = x.int() if f.name == "conv" else x.float()
+    return SeedState(scene=scene, **leaves)
+
+
+def state_to_numpy(state: SeedState) -> dict:
+    """Inverse of ``state_from_numpy``."""
+    out = {
+        f.name: getattr(state, f.name).cpu().numpy()
+        for f in dataclasses.fields(SeedState) if f.name != "scene"
+    }
+    out["scene"] = {
+        f.name: getattr(state.scene, f.name).cpu().numpy()
+        for f in dataclasses.fields(SceneParams)
+    }
+    return out

@@ -1,0 +1,144 @@
+"""The port's disparity sweep and matcher against the JAX package.
+
+Sweep: the pathological band layouts of tests/test_matching.py, against both
+the JAX Pallas sweep (interpret mode) and its XLA sweep. Matcher: the port's
+``epipolar.match`` against the JAX one in each motion regime (zero
+baseline -> pure rotation, axial -> plane sweep, lateral -> rectified).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rpg_open_remode_tpu import config as jcfg
+from rpg_open_remode_tpu.models import state as jstate
+from rpg_open_remode_tpu.ops import epipolar as jepi
+from rpg_open_remode_tpu.ops import rect_match as jrect
+from rpg_open_remode_tpu.ops import seed_init as jseed_init
+from rpg_open_remode_tpu.ops import sweep_pallas as jsweep
+from rpg_open_remode_tpu.utils import camera as jcamera
+from rpg_open_remode_tpu.utils import synthetic
+from rpg_open_remode_tpu_torch import config as pcfg
+from rpg_open_remode_tpu_torch import state_from_numpy
+from rpg_open_remode_tpu_torch.ops import epipolar as pepi
+from rpg_open_remode_tpu_torch.ops import sweep_cuda
+from rpg_open_remode_tpu_torch.utils import camera as pcamera
+from torch_parity import jax_state_numpy
+
+torch.set_num_threads(2)
+CAM_SMALL = dict(fx=120.3, fy=-120.0, cx=79.5, cy=59.5)
+
+
+def band_layout_inputs():
+    """The band layouts of
+    tests/test_matching.py::test_pallas_block_skipping_band_layouts."""
+    rng = np.random.default_rng(7)
+    rect_h, rect_w, pad = 128, 512, 128
+    ref = rng.random((rect_h, rect_w), dtype=np.float32)
+    curr_pad = rng.random((rect_h, rect_w + 2 * pad), dtype=np.float32)
+    # half of it the reference shifted by 20 planes, so bands holding
+    # disparity 20 find real peaks (pure noise finds none at patch 9)
+    shifted = slice(pad - 20, pad - 20 + rect_w)
+    curr_pad[:, shifted] = 0.5 * curr_pad[:, shifted] + 0.5 * ref
+    valid = np.ones((rect_h, rect_w), np.float32)
+    xlim = np.tile(np.array([[-200.0, rect_w + 200.0]], np.float32), (rect_h, 1))
+    lo = np.full((rect_h, rect_w), np.inf, np.float32)
+    hi = np.full((rect_h, rect_w), -np.inf, np.float32)
+    ramp = np.linspace(5, 100, rect_w, dtype=np.float32)[None, :]
+    lo[:40], hi[:40] = ramp - 2, ramp + 2
+    lo[70, 300], hi[70, 300] = 0.0, 120.0
+    lo[90:110, 250:260], hi[90:110, 250:260] = 17.0, 23.0
+    lo[120:, :64], hi[120:, :64] = 120.0, 126.0
+    return (curr_pad, xlim, ref, valid, lo, hi), pad
+
+
+def assert_sweeps_agree(got, want):
+    """found agrees on >= 0.999 of pixels; where both found, disparity
+    within 1e-3 and NCC within 1e-4."""
+    d_p, n_p, f_p = (np.asarray(x) for x in got)
+    d_j, n_j, f_j = (np.asarray(x) for x in want)
+    f_p, f_j = f_p > 0.5, f_j > 0.5
+    assert (f_p == f_j).mean() >= 0.999, (f_p != f_j).mean()
+    both = f_p & f_j
+    assert both.sum() > 100
+    np.testing.assert_allclose(d_p[both], d_j[both], atol=1e-3, rtol=0)
+    np.testing.assert_allclose(n_p[both], n_j[both], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("patch_side", [5, 9])
+def test_sweep_band_layouts_match_jax(patch_side):
+    args, pad = band_layout_inputs()
+    planes = 127
+    cfg = jcfg.RemodeConfig(num_planes=planes, patch_side=patch_side)
+    got = sweep_cuda.disparity_sweep(
+        *(torch.tensor(a) for a in args), cfg.ncc_threshold, planes, pad,
+        patch_side, True,
+    )
+    jargs = [jnp.asarray(a) for a in args]
+    want_xla = jrect._sweep_xla(*jargs, cfg, num_planes=planes, pad=pad,
+                                subplane_refine=True)
+    assert_sweeps_agree(got, want_xla)
+    want_pallas = jsweep.disparity_sweep(*jargs, cfg.ncc_threshold, planes, pad,
+                                         patch_side, True)
+    assert_sweeps_agree(got, want_pallas)
+
+
+def _Tcw(fr):
+    T = np.concatenate([fr.T_world_curr, [[0, 0, 0, 1]]])
+    return np.linalg.inv(T)[:3].astype(np.float32)
+
+
+def _states(frames):
+    cfg = jcfg.RemodeConfig()
+    f0 = frames[0]
+    d = f0.depth[np.isfinite(f0.depth)]
+    h, w = f0.image.shape
+    st = jseed_init.init_seeds(
+        jstate.empty_state(h, w, jcamera.PinholeCamera.create(**CAM_SMALL)),
+        jnp.asarray(f0.image), jnp.asarray(f0.T_world_curr),
+        jstate.SceneParams.create(d.min(), d.max(), cfg), cfg,
+    )
+    return st, state_from_numpy(jax_state_numpy(st))
+
+
+@pytest.mark.parametrize("regime", ["zero_baseline", "axial", "lateral"])
+def test_match_regimes_match_jax(regime):
+    if regime == "axial":
+        frames = synthetic.generate(n_frames=11, width=160, height=120, cam=CAM_SMALL,
+                                    seed=4, motion="forward", step=0.046)
+        curr = frames[10]
+    else:
+        frames = synthetic.generate(n_frames=6, width=160, height=120, cam=CAM_SMALL,
+                                    seed=3)
+        curr = frames[0] if regime == "zero_baseline" else frames[5]
+    jst, pst = _states(frames)
+    T_ref = np.concatenate([frames[0].T_world_curr, [[0, 0, 0, 1]]])
+    T_cur = np.concatenate([curr.T_world_curr, [[0, 0, 0, 1]]])
+    T_curr_ref = (np.linalg.inv(T_cur) @ T_ref)[:3].astype(np.float32)
+    if regime == "zero_baseline":
+        T_curr_ref = np.eye(4, dtype=np.float32)[:3]
+    want = jepi.match(jst, jnp.asarray(curr.image), jnp.asarray(T_curr_ref),
+                      jcamera.PinholeCamera.create(**CAM_SMALL), jcfg.RemodeConfig())
+    got = pepi.match(pst, torch.tensor(curr.image), torch.tensor(T_curr_ref),
+                     pcamera.PinholeCamera.create(**CAM_SMALL), pcfg.RemodeConfig())
+    fj, fp = np.asarray(want.found), got.found.numpy()
+    assert (fj == fp).mean() > 0.995, (fj != fp).mean()
+    both = fj & fp
+    assert both.mean() > 0.2, both.mean()
+    d_ncc = np.abs(got.best_ncc.numpy() - np.asarray(want.best_ncc))[both]
+    assert np.quantile(d_ncc, 0.999) < 0.01, np.quantile(d_ncc, 0.999)
+    err = np.hypot(got.u.numpy() - np.asarray(want.u), got.v.numpy() - np.asarray(want.v))
+    assert np.percentile(err[both], 95) < 0.1, np.percentile(err[both], 95)
+
+
+def test_walk_mode_is_not_ported():
+    frames = synthetic.generate(n_frames=1, width=32, height=24,
+                                cam=dict(fx=24.0, fy=-24.0, cx=15.5, cy=11.5))
+    cam = pcamera.PinholeCamera.create(fx=24.0, fy=-24.0, cx=15.5, cy=11.5)
+    from rpg_open_remode_tpu_torch.models.state import empty_state
+
+    pst = empty_state(24, 32, cam)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pepi.match(pst, torch.tensor(frames[0].image), torch.eye(4)[:3], cam,
+                   pcfg.RemodeConfig(match_mode="walk"))
