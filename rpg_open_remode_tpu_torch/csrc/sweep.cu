@@ -1,4 +1,5 @@
-// Integer-disparity ZNCC sweep on the rectified grid, one thread per pixel.
+// Integer-disparity ZNCC sweep on the rectified grid, with the (pixel, plane)
+// pairs of each 8x32 tile spread evenly over its threads.
 //
 // Replaces the Pallas kernel rpg_open_remode_tpu/ops/sweep_pallas.py:
 // _sweep_kernel (wrapper disparity_sweep). Its plain PyTorch version is
@@ -8,24 +9,51 @@
 // What bounds it on an H100: operations. Each (pixel, plane) pair that its
 // band admits costs 3 patch sums (curr, curr^2, curr*ref: ~5 flops per tap,
 // 125 at the 5x5 patch, 405 at 9x9) against ~36 bytes of unique input per
-// pixel, so the fp32 pipe, not HBM, is the limit; the taps hit L1/L2.
-// What the design does about it: each thread loops over its OWN band
-// [ceil(dlo - 0.5), floor(dhi + 0.5)] and nothing else (the per-pixel band
-// mask decides the result, so planes outside it cannot change it), skips
-// pixels whose reference patch fails the validity/texture guard before any
-// plane, and computes the reference template statistics once per pixel.
-// The TPU blocking (bands, tiles, plane groups, block plane hulls, rolls)
-// is gone. Shared-memory tiling of the taps is later work.
+// pixel. What held the one-thread-per-pixel loop back: a warp ran as long
+// as its longest band (bands are ragged: a young frame's median is 6 planes,
+// its p99 61), so about half of the lanes idled, and every tap was two
+// bounds-checked loads. The design:
+//
+//  1. Each thread owns one pixel of the block's 8x32 tile and computes the
+//     one interval of planes its masks admit: the band [ceil(dlo - 0.5),
+//     floor(dhi + 0.5)], the plane cap [0, K - 1] and the footprint limit
+//     xlim (x - k in [xmin, xmax], a monotone test in k, so an interval too;
+//     its ends are found in float and then fixed with the exact test). A
+//     block whose pixels admit no plane writes the not-found result and
+//     leaves before it loads anything.
+//  2. The ref and valid tiles (with their halo) are staged in shared memory
+//     with cp.async, zero-filled outside the buffers as the plain version's
+//     zero padding; each pixel computes its template statistics once.
+//  3. A block prefix sum of the interval lengths numbers the tile's pairs;
+//     the window of curr_pad that the tile's planes reach, (32 + hull + 2 hp)
+//     x (8 + 2 hp) floats, is staged with cp.async; then the threads take the
+//     pairs in turn (pair t -> thread t mod 256), so every warp but the
+//     tile's last is full, and each score goes to shared memory.
+//  4. Each pixel's owner scans its own scores in plane order with the
+//     running-best rules. Planes outside the interval score -1e30, and
+//     starting prev and right at -1e30 gives exactly the result of the scan
+//     over all K planes: a masked plane never beats best (which starts at
+//     -1) and matters only as a neighbour, where -1e30 is what the full scan
+//     would see. The scan costs a few operations per pair, against ~7 per
+//     tap of the score.
+// Pairs are processed in chunks of kChunk, so shared memory stays bounded
+// whatever the bands; the scan carries its state from chunk to chunk.
+//
+// remode_sweep_lanes runs a counting build of the same kernel, which adds
+// up, for every warp-step of the scoring loop (step 3) and of the per-pixel
+// loops (the owner map and the scan, step 4), the lanes that ran it
+// (__activemask) and the warp's 32 lanes: the measured lane efficiency of
+// each. remode_sweep's build has no counters.
 //
 // Semantics kept exactly (ROADMAP queue 3): masked plane scores -1e30;
 // best starts at -1 and its plane at -10; strict '>' keeps the lowest plane
 // among ties; 'right' takes the score of plane best+1 even when masked;
 // parabolic refinement only when both neighbours are > -5e29 and
 // |den| > 1e-12, clipped to +-0.5; found = best >= threshold && best >= 0.
-// Reads outside the buffers return 0 (the zero halo of the Pallas layout).
 //
-// Built with -fmad=false (kernels.py), and the patch sums add in the plain
-// version's order, so the kernel rounds as the plain version does: the
+// Built with -fmad=false (kernels.py), and each patch sum adds as the plain
+// version's separable box sums do (every row left to right, then the rows
+// top to bottom), so the kernel equals the plain version bit for bit: the
 // parabolic refinement divides by the NCC's second difference, which is
 // small on smooth real texture, and an FMA's different rounding moved the
 // refined disparity by more than 1e-3 on ~1/4 of a real frame's pixels.
@@ -36,71 +64,206 @@ namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr float kFltMin = 1.1754944e-38f;
+constexpr int kTw = 32;                 // tile width: one warp of x
+constexpr int kTh = 8;                  // tile height: eight warps
+constexpr int kThreads = kTw * kTh;
+constexpr int kChunk = 2048;            // pairs scored between two scans
 
-__device__ __forceinline__ float load_or_zero(const float* __restrict__ p, int y,
-                                              int x, int h, int w) {
-  return (y >= 0 && y < h && x >= 0 && x < w) ? __ldg(p + (size_t)y * w + x)
-                                              : 0.0f;
+// 4-byte asynchronous copy global -> shared; reads nothing and writes 0
+// when `pred` is false (the zero halo outside the buffers)
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(pred ? 4 : 0));
 }
 
-__global__ void sweep_kernel(const float* __restrict__ curr,   // [H, W + 2 pad]
-                             const float* __restrict__ xlim,   // [H, 2]
-                             const float* __restrict__ ref,    // [H, W]
-                             const float* __restrict__ valid,  // [H, W]
-                             const float* __restrict__ dlo,    // [H, W]
-                             const float* __restrict__ dhi,    // [H, W]
-                             float* __restrict__ disp, float* __restrict__ ncc_out,
-                             unsigned char* __restrict__ found, int h, int w,
-                             int pad, int num_planes, int hp, float threshold,
-                             int refine) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= w || y >= h) return;
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// stage rows [r0, r0 + rows) x cols [c0, c0 + cols) of an [h, w] buffer
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int r0,
+                                      int c0, int rows, int cols, int h, int w) {
+  for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
+    const int r = r0 + i / cols, c = c0 + i % cols;
+    const bool in = r >= 0 && r < h && c >= 0 && c < w;
+    cp_async_f32(dst + i, in ? src + (size_t)r * w + c : src, in);
+  }
+}
+
+// counting build only: one warp-step of a loop, the lanes that ran it
+// into lanes[0] and 32 into lanes[1]
+template <bool kCount>
+__device__ __forceinline__ void count_lanes(unsigned long long* lanes) {
+  if constexpr (kCount) {
+    const unsigned m = __activemask();
+    if ((threadIdx.x & 31) == __ffs(m) - 1) {
+      atomicAdd(lanes, (unsigned long long)__popc(m));
+      atomicAdd(lanes + 1, 32ull);
+    }
+  }
+}
+
+// exclusive block prefix sum of v; returns the sum before this thread's and
+// writes the block total to *total
+__device__ __forceinline__ int block_scan(int v, int* warp_sums, int* total) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += n;
+  }
+  if (lane == 31) warp_sums[wid] = incl;
+  __syncthreads();
+  int before = 0, all = 0;
+#pragma unroll
+  for (int i = 0; i < kTh; ++i) {
+    before += i < wid ? warp_sums[i] : 0;
+    all += warp_sums[i];
+  }
+  *total = all;
+  return before + incl - v;
+}
+
+template <int HP, bool kCount>
+__global__ void __launch_bounds__(kThreads)
+    sweep_kernel(const float* __restrict__ curr,   // [H, W + 2 pad]
+                 const float* __restrict__ xlim,   // [H, 2]
+                 const float* __restrict__ ref,    // [H, W]
+                 const float* __restrict__ valid,  // [H, W]
+                 const float* __restrict__ dlo,    // [H, W]
+                 const float* __restrict__ dhi,    // [H, W]
+                 float* __restrict__ disp, float* __restrict__ ncc_out,
+                 unsigned char* __restrict__ found, int h, int w, int pad, int num_planes,
+                 float threshold, int refine,
+                 unsigned long long* __restrict__ lanes) {  // [4], counting build
+
+  constexpr int kS = 2 * HP + 1;
+  constexpr int kRw = kTw + 2 * HP, kRh = kTh + 2 * HP;  // tile with its halo
+  const float area = (float)(kS * kS);
+  const int tid = threadIdx.x, tx = tid % kTw, ty = tid / kTw;
+  const int x0 = blockIdx.x * kTw, y0 = blockIdx.y * kTh;
+  const int x = x0 + tx, y = y0 + ty;
+  const bool in = x < w && y < h;
   const size_t idx = (size_t)y * w + x;
   const int wc = w + 2 * pad;
-  const float area = (float)((2 * hp + 1) * (2 * hp + 1));
 
-  float best = -1.0f, left = kNeg, right = kNeg, prev = kNeg;
-  int bk = -10;
+  extern __shared__ float smem[];
+  float* ref_t = smem;                        // [kRh, kRw]
+  float* val_t = ref_t + kRh * kRw;           // [kRh, kRw]
+  float* st_s = val_t + kRh * kRw;            // [kThreads] template sum
+  float* dt_s = st_s + kThreads;              // [kThreads] template denominator
+  float* score = dt_s + kThreads;             // [kChunk]
+  int* base_s = reinterpret_cast<int*>(score + kChunk);  // [kThreads] k - t
+  int* misc = base_s + kThreads;              // [kTh] warp sums, then 2: hull
+  unsigned char* owner = reinterpret_cast<unsigned char*>(misc + kTh + 2);  // [kChunk]
+  float* win = reinterpret_cast<float*>(owner + kChunk);  // [kRh, 32 + K - 1 + 2 HP]
 
-  // the plane range the band mask admits, clamped in float first: empty
-  // bands carry +inf / -inf, which must not reach an int cast
-  const float lo = dlo[idx] - 0.5f;
-  const float hi = dhi[idx] + 0.5f;
-  const float klo = fmaxf(ceilf(lo), 0.0f);
-  const float khi = fminf(floorf(hi), (float)(num_planes - 1));
-  if (!isnan(lo) && !isnan(hi) && klo <= khi) {
-    // patch sums as the plain version's separable box sums add: each row
-    // of the patch left to right, then the rows top to bottom
-    float st = 0.0f, stt = 0.0f, sv = 0.0f;
-    for (int dy = -hp; dy <= hp; ++dy) {
-      float rt = 0.0f, rtt = 0.0f, rv = 0.0f;
-      for (int dx = -hp; dx <= hp; ++dx) {
-        const float r = load_or_zero(ref, y + dy, x + dx, h, w);
-        rt += r;
-        rtt += r * r;
-        rv += load_or_zero(valid, y + dy, x + dx, h, w) > 0.999f ? 1.0f : 0.0f;
-      }
-      st += rt;
-      stt += rtt;
-      sv += rv;
+  // 1. the interval of planes this pixel's masks admit
+  int k0 = 0, k1 = -1;
+  if (in) {
+    // clamped in float first: empty bands carry +inf / -inf
+    const float lo = dlo[idx] - 0.5f, hi = dhi[idx] + 0.5f;
+    const float klo = fmaxf(ceilf(lo), 0.0f);
+    const float khi = fminf(floorf(hi), (float)(num_planes - 1));
+    const float xmin = xlim[2 * y], xmax = xlim[2 * y + 1];
+    if (!isnan(lo) && !isnan(hi) && !isnan(xmin) && !isnan(xmax) && klo <= khi) {
+      k0 = (int)klo;
+      k1 = (int)khi;
+      // plane k passes iff xf - k >= xmin (true up to some k) and
+      // xf - k <= xmax (true from some k): estimate both ends in float,
+      // clamped to [k0 - 1, k1 + 1], then settle them with the exact test
+      const float xf = (float)x;
+      int ub = (int)fminf(fmaxf(floorf(xf - xmin), (float)(k0 - 1)), (float)(k1 + 1));
+      while (ub >= k0 && !(xf - (float)ub >= xmin)) --ub;
+      while (ub + 1 <= k1 && xf - (float)(ub + 1) >= xmin) ++ub;
+      int lb = (int)fminf(fmaxf(ceilf(xf - xmax), (float)(k0 - 1)), (float)(k1 + 1));
+      while (lb <= k1 && !(xf - (float)lb <= xmax)) ++lb;
+      while (lb - 1 >= k0 && xf - (float)(lb - 1) <= xmax) --lb;
+      k0 = max(k0, lb);
+      k1 = min(k1, ub);
     }
-    const float denom_t = area * stt - st * st;
-    if (sv > area - 0.5f && denom_t > 1e-10f) {
-      const float xmin = xlim[2 * y], xmax = xlim[2 * y + 1];
-      const int k0 = (int)klo, k1 = (int)khi;
-      for (int k = k0; k <= k1; ++k) {
-        const float delta = (float)k;
-        const float xs = (float)x - delta;
-        float ncc = kNeg;
-        if (xs >= xmin && xs <= xmax) {
-          const int cx = x + pad - k;  // curr_pad column of this pixel at plane k
+  }
+
+  float best = -1.0f, left = kNeg, right = kNeg;
+  int bk = -10;
+  if (__syncthreads_or(k0 <= k1)) {
+    // 2. ref and valid tiles with their halo; template statistics, added
+    // as the plain version's separable box sums add
+    stage(ref_t, ref, y0 - HP, x0 - HP, kRh, kRw, h, w);
+    stage(val_t, valid, y0 - HP, x0 - HP, kRh, kRw, h, w);
+    cp_async_wait_all();
+    __syncthreads();
+    int n = 0;
+    if (k0 <= k1) {
+      float st = 0.0f, stt = 0.0f, sv = 0.0f;
+#pragma unroll
+      for (int dy = 0; dy < kS; ++dy) {
+        float rt = 0.0f, rtt = 0.0f, rv = 0.0f;
+#pragma unroll
+        for (int dx = 0; dx < kS; ++dx) {
+          const float r = ref_t[(ty + dy) * kRw + tx + dx];
+          rt += r;
+          rtt += r * r;
+          rv += val_t[(ty + dy) * kRw + tx + dx] > 0.999f ? 1.0f : 0.0f;
+        }
+        st += rt;
+        stt += rtt;
+        sv += rv;
+      }
+      const float denom_t = area * stt - st * st;
+      st_s[tid] = st;
+      dt_s[tid] = denom_t;
+      if (sv > area - 0.5f && denom_t > 1e-10f) n = k1 - k0 + 1;
+    }
+
+    // 3. number the tile's pairs; the hull of its planes
+    int total;
+    const int off = block_scan(n, misc, &total);
+    if (tid == 0) {
+      misc[kTh] = num_planes;
+      misc[kTh + 1] = -1;
+    }
+    __syncthreads();
+    if (n > 0) {
+      atomicMin(&misc[kTh], k0);
+      atomicMax(&misc[kTh + 1], k1);
+    }
+    base_s[tid] = k0 - off;
+    __syncthreads();
+    const int kmin = misc[kTh], kmax = misc[kTh + 1];
+    if (total > 0) {
+      // curr_pad columns x + pad - k + (dx - HP) over the tile's x and planes
+      const int ww = kTw + (kmax - kmin) + 2 * HP;
+      stage(win, curr, y0 - HP, x0 + pad - kmax - HP, kRh, ww, h, wc);
+      cp_async_wait_all();
+      __syncthreads();
+
+      float prev = kNeg;
+      for (int cs = 0; cs < total; cs += kChunk) {
+        const int ce = min(total, cs + kChunk);
+        const int t0 = max(off, cs), t1 = min(off + n, ce);
+        for (int t = t0; t < t1; ++t) {
+          count_lanes<kCount>(lanes + 2);
+          owner[t - cs] = (unsigned char)tid;
+        }
+        __syncthreads();
+        for (int t = cs + tid; t < ce; t += kThreads) {
+          count_lanes<kCount>(lanes);
+          const int p = owner[t - cs];
+          const int k = t + base_s[p];
+          const int px = p % kTw, py = p / kTw;
+          const float* wr = win + py * ww + px + (kmax - k);
+          const float* rr = ref_t + py * kRw + px;
           float si = 0.0f, sii = 0.0f, sit = 0.0f;
-          for (int dy = -hp; dy <= hp; ++dy) {
+#pragma unroll
+          for (int dy = 0; dy < kS; ++dy) {
             float ri = 0.0f, rii = 0.0f, rit = 0.0f;
-            for (int dx = -hp; dx <= hp; ++dx) {
-              const float c = load_or_zero(curr, y + dy, cx + dx, h, wc);
-              const float r = load_or_zero(ref, y + dy, x + dx, h, w);
+#pragma unroll
+            for (int dx = 0; dx < kS; ++dx) {
+              const float c = wr[dy * ww + dx];
+              const float r = rr[dy * kRw + dx];
               ri += c;
               rii += c * c;
               rit += c * r;
@@ -109,22 +272,32 @@ __global__ void sweep_kernel(const float* __restrict__ curr,   // [H, W + 2 pad]
             sii += rii;
             sit += rit;
           }
-          const float num = area * sit - si * st;
+          const float num = area * sit - si * st_s[p];
           const float den_l = area * sii - si * si;
-          if (den_l > 1e-10f) ncc = num * rsqrtf(fmaxf(den_l * denom_t, kFltMin));
+          score[t - cs] =
+              den_l > 1e-10f ? num * rsqrtf(fmaxf(den_l * dt_s[p], kFltMin)) : kNeg;
         }
-        if (ncc > best) {
-          left = prev;
-          right = kNeg;
-          bk = k;
-          best = ncc;
-        } else if (bk == k - 1) {
-          right = ncc;
+        __syncthreads();
+        // 4. this pixel's scores in plane order
+        for (int t = t0; t < t1; ++t) {
+          count_lanes<kCount>(lanes + 2);
+          const int k = t + base_s[tid];
+          const float v = score[t - cs];
+          if (v > best) {
+            left = prev;
+            right = kNeg;
+            bk = k;
+            best = v;
+          } else if (bk == k - 1) {
+            right = v;
+          }
+          prev = v;
         }
-        prev = ncc;
+        __syncthreads();
       }
     }
   }
+  if (!in) return;
 
   float kf = (float)bk;
   if (refine) {
@@ -139,6 +312,52 @@ __global__ void sweep_kernel(const float* __restrict__ curr,   // [H, W + 2 pad]
   found[idx] = (best >= threshold && bk >= 0) ? 1 : 0;
 }
 
+template <int HP, bool kCount>
+int launch(const float* curr, const float* xlim, const float* ref, const float* valid,
+           const float* dlo, const float* dhi, float* disp, float* ncc,
+           unsigned char* found, int h, int w, int pad, int num_planes, float threshold,
+           int refine, unsigned long long* lanes, cudaStream_t stream) {
+  constexpr int kRw = kTw + 2 * HP, kRh = kTh + 2 * HP;
+  const size_t win = (size_t)kRh * (kTw + num_planes - 1 + 2 * HP);
+  const size_t bytes = sizeof(float) * (2 * kRh * kRw + 2 * kThreads + kChunk) +
+                       sizeof(int) * (kThreads + kTh + 2) + kChunk + sizeof(float) * win;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sweep_kernel<HP, kCount>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((w + kTw - 1) / kTw, (h + kTh - 1) / kTh);
+  sweep_kernel<HP, kCount><<<grid, kThreads, bytes, stream>>>(
+      curr, xlim, ref, valid, dlo, dhi, disp, ncc, found, h, w, pad, num_planes, threshold,
+      refine, lanes);
+  return (int)cudaGetLastError();
+}
+
+template <bool kCount>
+int dispatch(const float* curr, const float* xlim, const float* ref, const float* valid,
+             const float* dlo, const float* dhi, float* disp, float* ncc,
+             unsigned char* found, int h, int w, int pad, int num_planes, int patch_side,
+             float threshold, int refine, unsigned long long* lanes, cudaStream_t s) {
+#define REMODE_SWEEP_CASE(HP)                                                           \
+  case HP:                                                                              \
+    return launch<HP, kCount>(curr, xlim, ref, valid, dlo, dhi, disp, ncc, found, h, w, \
+                              pad, num_planes, threshold, refine, lanes, s);
+  switch (patch_side / 2) {
+    REMODE_SWEEP_CASE(0)
+    REMODE_SWEEP_CASE(1)
+    REMODE_SWEEP_CASE(2)
+    REMODE_SWEEP_CASE(3)
+    REMODE_SWEEP_CASE(4)
+    REMODE_SWEEP_CASE(5)
+    REMODE_SWEEP_CASE(6)
+    REMODE_SWEEP_CASE(7)
+    REMODE_SWEEP_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef REMODE_SWEEP_CASE
+}
+
 }  // namespace
 
 extern "C" int remode_sweep(const float* curr, const float* xlim, const float* ref,
@@ -146,10 +365,20 @@ extern "C" int remode_sweep(const float* curr, const float* xlim, const float* r
                             float* disp, float* ncc, unsigned char* found, int h,
                             int w, int pad, int num_planes, int patch_side,
                             float threshold, int refine, void* stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y);
-  sweep_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      curr, xlim, ref, valid, dlo, dhi, disp, ncc, found, h, w, pad, num_planes,
-      patch_side / 2, threshold, refine);
-  return (int)cudaGetLastError();
+  return dispatch<false>(curr, xlim, ref, valid, dlo, dhi, disp, ncc, found, h, w, pad,
+                         num_planes, patch_side, threshold, refine, nullptr,
+                         (cudaStream_t)stream);
+}
+
+// The counting build (see the header): lanes[0..1] for the scoring loop,
+// lanes[2..3] for the per-pixel loops, added to what they hold.
+extern "C" int remode_sweep_lanes(const float* curr, const float* xlim, const float* ref,
+                                  const float* valid, const float* dlo, const float* dhi,
+                                  float* disp, float* ncc, unsigned char* found, int h,
+                                  int w, int pad, int num_planes, int patch_side,
+                                  float threshold, int refine, unsigned long long* lanes,
+                                  void* stream) {
+  return dispatch<true>(curr, xlim, ref, valid, dlo, dhi, disp, ncc, found, h, w, pad,
+                        num_planes, patch_side, threshold, refine, lanes,
+                        (cudaStream_t)stream);
 }

@@ -45,9 +45,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "remode_sweep": [_P] * 9 + [_I] * 5 + [_F, _I, _P],
+    "remode_sweep_lanes": [_P] * 9 + [_I] * 5 + [_F, _I, _P, _P],
     "remode_resample_rows": [_P] * 3 + [_I] * 4 + [_P],
     "remode_resample_cols": [_P] * 3 + [_I] * 4 + [_P],
-    "remode_tvl1": [_P] * 10 + [_I] * 3 + [_F] * 4 + [_P],
+    "remode_tvl1": [_P] * 10 + [_I] * 3 + [_F] * 4 + [_P, _P],
 }
 
 _lib = None
@@ -70,21 +71,21 @@ def _nvcc() -> str:
     return path
 
 
-def _library_path() -> Path:
+def _library_path(csrc: Path, build_dir: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"libremode_kernels_{h.hexdigest()[:16]}.so"
+        h.update((csrc / name).read_bytes())
+    return build_dir / f"libremode_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _build(target: Path) -> None:
+def _build(csrc: Path, target: Path) -> None:
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    target.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
         objs = [Path(tmp) / (name + ".o") for name in SOURCES]
         procs = [
             subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
+                [nvcc, *NVCC_FLAGS, "-c", str(csrc / name), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
             for name, obj in zip(SOURCES, objs)
@@ -106,19 +107,26 @@ def _build(target: Path) -> None:
         os.replace(tmp_lib, target)
 
 
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+    """The shared library of the kernels in ``csrc``, built unless a cached
+    copy matches the sources and flags. Raises if nvcc is missing or the
+    build fails."""
+    target = _library_path(Path(csrc), Path(build_dir))
+    if not target.exists():
+        _build(Path(csrc), target)
+    return target
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if no cached copy matches the
-    sources. Raises if CUDA or nvcc is missing or the build fails."""
+    """The loaded kernel library, built at first use. Raises if CUDA or nvcc
+    is missing or the build fails."""
     global _lib, build_seconds
     if _lib is not None:
         return _lib
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: the kernels need a GPU")
-    target = _library_path()
     t0 = time.perf_counter()
-    if not target.exists():
-        _build(target)
-    lib = ctypes.CDLL(str(target))
+    lib = ctypes.CDLL(str(build()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -11,7 +11,9 @@ per-pixel band [dlo - 0.5, dhi + 0.5]; a running best with a strict ``>``;
 3-point parabolic refinement. Returns ``(disp, ncc, found)``.
 
 The block plane intervals of the Pallas wrapper are TPU scheduling: the
-kernel loops over each pixel's own band instead.
+kernel spreads each tile's admitted (pixel, plane) pairs over its threads
+instead. ``sweep_lanes`` runs the kernel's counting build, which measures
+how many of the lanes its loops run are in use.
 """
 
 from __future__ import annotations
@@ -102,19 +104,11 @@ def disparity_sweep_plain(
     return kf, best, found
 
 
-def disparity_sweep(
-    curr_pad, xlim, ref_img, valid, disp_lo, disp_hi,
-    ncc_threshold: float, num_planes: int, pad: int, patch_side: int,
-    subplane_refine: bool,
-):
-    """Run the sweep: the CUDA kernel on CUDA tensors, the plain version on
-    CPU tensors. ``curr_pad`` [H, W + 2 pad], ``xlim`` [H, 2], the rest
-    [H, W]. Returns ``(disp, ncc, found)`` on the rect grid."""
-    if not ref_img.is_cuda:
-        return disparity_sweep_plain(
-            curr_pad, xlim, ref_img, valid, disp_lo, disp_hi, ncc_threshold,
-            num_planes, pad, patch_side, subplane_refine,
-        )
+def _launch(args, lanes=None):
+    """Validate the inputs and launch the kernel (its counting build, adding
+    into the int64 tensor ``lanes``, when one is given)."""
+    (curr_pad, xlim, ref_img, valid, disp_lo, disp_hi,
+     ncc_threshold, num_planes, pad, patch_side, subplane_refine) = args
     h, w = ref_img.shape
     if num_planes > pad - 1:
         raise ValueError(f"num_planes {num_planes} needs disp_pad > {num_planes}")
@@ -129,12 +123,47 @@ def disparity_sweep(
     disp = torch.empty((h, w), dtype=torch.float32, device=dev)
     ncc = torch.empty((h, w), dtype=torch.float32, device=dev)
     found = torch.empty((h, w), dtype=torch.bool, device=dev)
-    err = kernels.library().remode_sweep(
-        curr_pad.data_ptr(), xlim.data_ptr(), ref_img.data_ptr(), valid.data_ptr(),
-        disp_lo.data_ptr(), disp_hi.data_ptr(), disp.data_ptr(), ncc.data_ptr(),
-        found.data_ptr(), h, w, pad, num_planes, patch_side,
-        float(ncc_threshold), int(bool(subplane_refine)), kernels.stream_of(ref_img),
-    )
+    ptrs = [t.data_ptr() for t in (curr_pad, xlim, ref_img, valid, disp_lo, disp_hi,
+                                   disp, ncc, found)]
+    scalars = [h, w, pad, num_planes, patch_side, float(ncc_threshold),
+               int(bool(subplane_refine))]
+    lib = kernels.library()
+    if lanes is None:
+        err = lib.remode_sweep(*ptrs, *scalars, kernels.stream_of(ref_img))
+    else:
+        kernels.require(lanes, "lanes", (4,), torch.int64)
+        err = lib.remode_sweep_lanes(*ptrs, *scalars, lanes.data_ptr(),
+                                     kernels.stream_of(ref_img))
     kernels.check(err, "sweep")
     kernels.LAUNCHES["sweep"] += 1
     return disp, ncc, found
+
+
+def disparity_sweep(
+    curr_pad, xlim, ref_img, valid, disp_lo, disp_hi,
+    ncc_threshold: float, num_planes: int, pad: int, patch_side: int,
+    subplane_refine: bool,
+):
+    """Run the sweep: the CUDA kernel on CUDA tensors, the plain version on
+    CPU tensors. ``curr_pad`` [H, W + 2 pad], ``xlim`` [H, 2], the rest
+    [H, W]. Returns ``(disp, ncc, found)`` on the rect grid."""
+    args = (curr_pad, xlim, ref_img, valid, disp_lo, disp_hi, ncc_threshold,
+            num_planes, pad, patch_side, subplane_refine)
+    if not ref_img.is_cuda:
+        return disparity_sweep_plain(*args)
+    return _launch(args)
+
+
+def sweep_lanes(*args) -> dict:
+    """Lane use of the kernel's loops on these inputs (the arguments of
+    ``disparity_sweep``, on the card): the counting build adds, for every
+    warp-step, the lanes that ran it (``__activemask``) and the warp's 32.
+    Returns ``{"scoring": (lanes, slots), "per_pixel": (lanes, slots)}``: the
+    loop that scores the tile's pairs, and the loops over each pixel's own
+    pairs (owner map and scan)."""
+    if not args[2].is_cuda:
+        raise ValueError("sweep_lanes measures the CUDA kernel: pass CUDA tensors")
+    lanes = torch.zeros(4, dtype=torch.int64, device=args[2].device)
+    _launch(args, lanes)
+    c = [int(v) for v in lanes.cpu()]
+    return {"scoring": (c[0], c[1]), "per_pixel": (c[2], c[3])}

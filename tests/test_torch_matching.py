@@ -23,6 +23,7 @@ from rpg_open_remode_tpu_torch import config as pcfg
 from rpg_open_remode_tpu_torch import state_from_numpy
 from rpg_open_remode_tpu_torch.ops import epipolar as pepi
 from rpg_open_remode_tpu_torch.ops import sweep_cuda
+from rpg_open_remode_tpu_torch.testing import sweep_cases
 from rpg_open_remode_tpu_torch.utils import camera as pcamera
 from torch_parity import jax_state_numpy
 
@@ -82,6 +83,84 @@ def test_sweep_band_layouts_match_jax(patch_side):
     want_pallas = jsweep.disparity_sweep(*jargs, cfg.ncc_threshold, planes, pad,
                                          patch_side, True)
     assert_sweeps_agree(got, want_pallas)
+
+
+def _edge_semantics(disp, ncc, found, patch_side):
+    """The sweep rules each edge-case group was built to exercise (ROADMAP
+    queue 3), at pixels whose patches stay inside their group."""
+    D = sweep_cases.D_TRUE
+
+    def rows(name):
+        return sweep_cases.edge_interior_rows(name, patch_side)
+
+    x = slice(16, 240)
+    # equal NCC at D and D + 32: the strict '>' keeps the lower plane
+    r = rows("tie")
+    assert found[r, x].all() and (np.round(disp[r, x]) == D).all()
+    # best at the band's first / last plane: a masked neighbour, no refinement
+    for name in ("best_first", "best_last"):
+        r = rows(name)
+        assert found[r, x].all() and (disp[r, x] == D).all(), name
+    # right neighbour masked by a textureless patch / by the footprint limit
+    r = rows("masked_right")
+    hp = patch_side // 2
+    for c0 in range(128 + 8, 128 + 256 - 16, 24):
+        xs = c0 - 128 + D + 1 + hp
+        assert (disp[r.start: r.start + 4, xs] == D).all(), xs
+    bottom = slice(r.start + sweep_cases.GROUP_ROWS // 2, r.stop)
+    assert found[bottom, 100].all() and (disp[bottom, 100] == D).all()
+    # bands at plane 0 (peak at 1, refined) and at K - 1 (right neighbour
+    # beyond the cap)
+    r = rows("plane_0_and_last")
+    assert (np.round(disp[r, 16:112]) == 1).all()
+    assert found[r, 144:240].all() and (disp[r, 144:240] == 126).all()
+
+    def none_found(rr, xx):
+        return (disp[rr, xx] == -10).all() and (ncc[rr, xx] == -1).all() and not found[rr, xx].any()
+
+    r = sweep_cases.edge_group_rows("no_plane")
+    third = 256 // 3
+    assert none_found(r, slice(0, third))
+    assert none_found(slice(r.start, r.start + sweep_cases.GROUP_ROWS // 2), slice(None))
+    assert none_found(r, slice(2 * third, None))
+    # +-inf and NaN bounds: only (-inf, inf) and the finite block sweep
+    r = sweep_cases.edge_group_rows("inf_nan")
+    for i in (0, 2, 3, 4, 5, 6):
+        assert none_found(r, slice(32 * i, 32 * i + 32)), i
+    ri = rows("inf_nan")
+    assert (np.round(disp[ri, 32 + 8: 64 - 8]) == D).all()
+    # footprint limits inside the band: the true plane 25 is the last / first
+    # admitted plane at x = 85 / x = 225, and cut off at x = 84 / x = 226
+    r = rows("xlim_cut")
+    assert found[r, 85].all() and (disp[r, 85] == 25).all()
+    assert found[r, 225].all() and (disp[r, 225] == 25).all()
+    assert (np.round(disp[r, 84]) != 25).all() and (np.round(disp[r, 226]) != 25).all()
+
+
+@pytest.mark.parametrize("patch_side", [5, 9])
+def test_sweep_edge_cases_match_jax(patch_side):
+    """The plain sweep against the JAX XLA sweep on hand-built edge cases:
+    equal NCC at two planes, a best at a band's first and last plane, a
+    masked best+1 neighbour, bands at plane 0 and K-1, bands that admit no
+    plane, +-inf and NaN bands, footprint limits that cut a band."""
+    args = sweep_cases.edge_cases(patch_side)
+    planes, pad = 127, 128
+    cfg = jcfg.RemodeConfig(num_planes=planes, patch_side=patch_side)
+    got = [t.numpy() for t in sweep_cuda.disparity_sweep(
+        *(torch.tensor(a) for a in args), cfg.ncc_threshold, planes, pad, patch_side, True)]
+    want = [np.asarray(t) for t in jrect._sweep_xla(
+        *(jnp.asarray(a) for a in args), cfg, num_planes=planes, pad=pad, subplane_refine=True)]
+    d_p, n_p, f_p = got
+    d_j, n_j, f_j = want
+    f_j = f_j > 0.5
+    np.testing.assert_allclose(n_p, n_j, atol=1e-4, rtol=0)
+    near = np.abs(n_p - cfg.ncc_threshold) < 1e-5
+    assert (f_p == f_j)[~near].all()
+    both = f_p & f_j
+    assert both.sum() > 1000
+    np.testing.assert_allclose(d_p[both], d_j[both], atol=1e-3, rtol=0)
+    for d, n, f in (got, (d_j, n_j, f_j)):
+        _edge_semantics(d, n, f, patch_side)
 
 
 def _Tcw(fr):
