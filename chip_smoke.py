@@ -31,18 +31,28 @@ measured to a JSON file.
 
 from __future__ import annotations
 
-import argparse
-import contextlib
-import ctypes
-import json
-import subprocess
-import sys
-import tempfile
-import time
-import types
-from pathlib import Path
+import os
 
-import numpy as np
+# The synthetic scene renders its frames in threads; OpenBLAS's own threads
+# would contend with them on the skinny [pixels, 3] x [3, 48] texture
+# products, which give the same bits on one thread. Set before numpy loads
+# OpenBLAS.
+os.environ.setdefault("OPENBLAS_NUM_THREADS", "1")
+
+import argparse  # noqa: E402
+import contextlib  # noqa: E402
+import ctypes  # noqa: E402
+import dataclasses  # noqa: E402
+import json  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+import tempfile  # noqa: E402
+import threading  # noqa: E402
+import time  # noqa: E402
+import types  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+import numpy as np  # noqa: E402
 
 HARDEN = dict(noise_sigma=0.01, vignette=0.15, n_textureless=3, n_spheres=2)
 CAM_640 = dict(fx=481.2, fy=-480.0, cx=319.5, cy=239.5)
@@ -78,8 +88,15 @@ KERNEL_SYMBOLS = {"sweep": "sweep_kernel", "resample_rows": "resample_rows_kerne
 WARP_LABELS = {5: "ref stack", 1: "curr", 3: "back-warp"}
 
 
+T_START = time.perf_counter()
+
+
 def log(*args):
     print(*args, flush=True)
+
+
+def phase(title):
+    log(f"== {title} (at {time.perf_counter() - T_START:.1f} s)")
 
 
 def Tcw(fr):
@@ -298,12 +315,12 @@ def intercept(hook):
             resample_cuda.resample_cols = saved
 
 
-def make_frames(width, height, cam, n_frames):
+def make_frames(width, height, cam, n_frames, step=0.023):
     from rpg_open_remode_tpu_torch.utils import synthetic
 
     t0 = time.perf_counter()
     frames = synthetic.generate(n_frames=n_frames, width=width, height=height, cam=cam,
-                                seed=1, step=0.023, **HARDEN)
+                                seed=1, step=step, **HARDEN)
     log(f"  generated {n_frames} frames in {time.perf_counter() - t0:.1f} s")
     return frames
 
@@ -354,7 +371,8 @@ def replay(torch, P, frames, cam, kernels=None, events=None, kept=None, hook=Non
 
 
 def accuracy(eng, den, gt, depth_range, P):
-    """eval.py's _accuracy: converged %, within 2.6 % of range raw/denoised."""
+    """eval.py's _accuracy: converged %, within 2.6 % of range raw/denoised
+    (``den`` None: raw only, as eval.py's denoise=False)."""
     err_bound = 0.026 * depth_range
     conv = eng.convergence_map()
     mu = eng.depthmap()
@@ -366,8 +384,10 @@ def accuracy(eng, den, gt, depth_range, P):
     def within(d):
         return float((np.abs(d - gt)[converged] < err_bound).mean()) if converged.any() else float("nan")
 
-    return dict(converged_pct=100.0 * converged.sum() / valid_gt.sum(),
-                within_raw=within(mu), within_denoised=within(den))
+    out = dict(converged_pct=100.0 * converged.sum() / valid_gt.sum(), within_raw=within(mu))
+    if den is not None:
+        out["within_denoised"] = within(den)
+    return out
 
 
 def drive(torch, P, kernels, frames, cam, keep_frame=None):
@@ -622,12 +642,426 @@ def profile_run(torch, P, frames, cam, label, wall_ms, account=False):
     return out, eng
 
 
+# -- keyframe lifecycle ---------------------------------------------------------
+
+
+FAST_STEP = 1.61 / 60.0   # eval.py's fast_motion pace (paper Table I, 60 fps)
+# eval.py's keyframe-segment rows of EVAL.json (mean converged % per keyframe,
+# mean within 2.6 % of range, raw): held to +-1.5 points converged and at
+# most 1.5 points below on within
+LIFECYCLE_ROWS = {
+    "over_table_lifecycle": dict(frames="over_table", n=198, seg=int(0.5 / 0.023) + 1,
+                                 propagate=False, converged_pct=72.9, within=88.7),
+    "over_table_lifecycle_propagated": dict(frames="over_table", n=198,
+                                            seg=int(0.5 / 0.023) + 1, propagate=True,
+                                            converged_pct=75.8, within=85.6),
+    "fast_motion": dict(frames="fast_motion", n=190, seg=int(0.5 / FAST_STEP) + 1,
+                        propagate=False, converged_pct=33.8, within=91.4),
+    "fast_motion_propagated": dict(frames="fast_motion", n=190, seg=int(0.5 / FAST_STEP) + 1,
+                                   propagate=True, converged_pct=65.5, within=91.0),
+}
+KEEP_SWITCH = 2          # the fast_motion_propagated switch whose inputs are kept
+PROP_LABEL = "propagated_reseed"
+
+
+def keyframe_segments(torch, P, frames, cam, seg, propagate, keep_switch=None,
+                      reseed_wrap=None):
+    """eval.py's eval_keyframe_segments through the port's ``Depthmap``: a
+    new keyframe every ``seg`` frames, bounds padded 0.5x / 2.5x, accuracy
+    per keyframe without denoise against the GT range. ``keep_switch``
+    keeps that switch's outgoing state, image, pose and bounds;
+    ``reseed_wrap()`` is a context around every switch after the first.
+    Returns (mean converged %, mean within %, keyframes), kept."""
+    h, w = frames[0].image.shape
+    cfg = P.RemodeConfig(propagate_depth=True) if propagate else None
+    eng = P.Depthmap(w, h, cam["fx"], cam["cx"], cam["fy"], cam["cy"], cfg=cfg)
+    per_kf, kept = [], None
+    for k, i in enumerate(range(0, len(frames) - seg + 1, seg)):
+        gt = frames[i].depth
+        d = gt[np.isfinite(gt)]
+        bounds = (0.5 * float(d.min()), 2.5 * float(d.max()))
+        if k == keep_switch:
+            kept = dict(eng=eng, state=eng.state, img=frames[i].image, T=Tcw(frames[i]),
+                        bounds=bounds)
+        with reseed_wrap() if reseed_wrap and k else contextlib.nullcontext():
+            eng.set_reference_image(frames[i].image, Tcw(frames[i]), *bounds)
+        for fr in frames[i + 1:i + seg]:
+            eng.update(fr.image, Tcw(fr))
+        per_kf.append(accuracy(eng, None, gt, float(d.max() - d.min()), P))
+
+    def mean_of(key):
+        vals = [a[key] for a in per_kf if np.isfinite(a[key])]
+        return float(np.mean(vals)) if vals else float("nan")
+
+    return dict(converged_pct=mean_of("converged_pct"), within=100 * mean_of("within_raw"),
+                keyframes=len(per_kf)), kept
+
+
+def lifecycle_accuracy(torch, P, over_table, fast):
+    """The four keyframe-segment rows of EVAL.json on the card. Returns the
+    results and the kept fast_motion_propagated switch."""
+    out, kept, bad = {}, None, []
+    for name, row in LIFECYCLE_ROWS.items():
+        t0 = time.perf_counter()
+        frames = (over_table if row["frames"] == "over_table" else fast)[:row["n"]]
+        keep = KEEP_SWITCH if name == "fast_motion_propagated" else None
+        r, k = keyframe_segments(torch, P, frames, CAM_640, row["seg"], row["propagate"],
+                                 keep_switch=keep)
+        kept = k or kept
+        r["seconds"] = time.perf_counter() - t0
+        out[name] = r
+        ok = (abs(r["converged_pct"] - row["converged_pct"]) <= 1.5
+              and r["within"] >= row["within"] - 1.5)
+        log(f"  {name}: {r['keyframes']} keyframes of {row['seg']} frames, converged per "
+            f"keyframe {r['converged_pct']:.4f} %, within 2.6 % {r['within']:.4f} % (EVAL.json "
+            f"{row['converged_pct']} / {row['within']}; {'ok' if ok else 'OUTSIDE'}), "
+            f"{r['seconds']:.1f} s")
+        if not ok:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"lifecycle rows outside the EVAL.json bounds: {bad}")
+    return out, kept
+
+
+def propagation(torch, P, kept):
+    """Depth propagation on the kept switch: each of its resample calls (C=3,
+    full image) against the plain version; one whole propagated reseed timed
+    with CUDA events; the reseed's resample calls timed as a CUDA graph
+    beside their summed bound and their plain versions; one reseed under the
+    profiler for its device launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rpg_open_remode_tpu_torch.models import depthmap
+    from rpg_open_remode_tpu_torch.models.state import SceneParams
+    from rpg_open_remode_tpu_torch.ops import propagate, resample_cuda
+
+    eng = kept["eng"]
+    img = eng.input_image(kept["img"])
+    T = torch.tensor(kept["T"], device=eng.device)
+    scene = SceneParams.create(*kept["bounds"], eng.cfg, device=eng.device)
+
+    def reseed():
+        return depthmap._set_reference_propagated(kept["state"], img, T, scene, eng.cam, eng.cfg)
+
+    calls = {"rows": [], "cols": []}
+    with intercept(lambda kind, args: calls[kind].append(args)):
+        state = reseed()
+    h, w = img.shape
+    for kind, args in calls.items():
+        shapes = {(tuple(a.shape), tuple(c.shape)) for a, c in args}
+        if len(args) != propagate.PLANES or shapes != {((3, h, w), (h, w))}:
+            raise AssertionError(f"propagation made {len(args)} {kind} calls of {shapes}")
+    out = dict(carried_pct=100.0 * float((state.sigma_sq != scene.sigma_sq_max).float().mean()))
+    for kind, args in calls.items():
+        fn = getattr(resample_cuda, f"resample_{kind}")
+        plain = getattr(resample_cuda, f"resample_{kind}_plain")
+        err = max(max_err(fn(*a), plain(*a)) for a in args)
+        log(f"  {len(args)} resample_{kind} calls (C=3, {h}x{w}) of the reseed: max err {err:.3g}")
+        if err != 0.0:
+            raise AssertionError(f"resample_{kind} differs from its plain version in propagation")
+        nb = sum(resample_bytes(kind, *a)[0] for a in args)
+        nf = sum(resample_bytes(kind, *a)[1] for a in args)
+        out[f"resample_{kind}"] = dict(
+            calls=len(args), max_abs_err=err, bound=bound(nb, nf),
+            ms=graph_ms(torch, lambda: [fn(*a) for a in args], n=2, reps=5),
+            plain_ms=cuda_ms(torch, lambda: [plain(*a) for a in args], 3, 1))
+    out["reseed_ms"] = cuda_ms(torch, reseed, 5, 1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        reseed()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    out["device_ops_per_switch"] = len(names)
+    out["copies_per_switch"] = sum(n.startswith(("Memcpy", "Memset")) for n in names)
+    log(f"  propagated reseed {out['reseed_ms']:.3f} ms (CUDA events), {out['carried_pct']:.2f} % "
+        f"of pixels carried; {out['device_ops_per_switch']} device operations per switch "
+        f"({out['copies_per_switch']} copies or fills; profiler)")
+    for kind in ("rows", "cols"):
+        r = out[f"resample_{kind}"]
+        log(f"  resample_{kind}, the reseed's {r['calls']} calls: {r['ms']:.4f} ms (CUDA graph; "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by {r['bound'][1]})")
+    return out
+
+
+FENCE_S = 0.002   # idle device time on either side of a fenced reseed
+
+
+def profile_lifecycle(torch, P, fast):
+    """Replay fast_motion_propagated under torch.profiler with each
+    propagated reseed in a ``PROP_LABEL`` range, fenced: the device is idle
+    for FENCE_S before the range opens and after it closes, and the range
+    ends with a synchronization. A device event counts as the reseed's when
+    it starts within FENCE_S / 2 of a range, which tolerates that much skew
+    between the host's and the device's clocks. Returns per-kernel device
+    ms and launches, in the reseeds and over the run, and the device
+    operations per switch."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    @contextlib.contextmanager
+    def fenced():
+        torch.cuda.synchronize()
+        time.sleep(FENCE_S)
+        with record_function(PROP_LABEL):
+            yield
+            torch.cuda.synchronize()
+        time.sleep(FENCE_S)
+
+    row = LIFECYCLE_ROWS["fast_motion_propagated"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        keyframe_segments(torch, P, fast[:row["n"]], CAM_640, row["seg"], True, reseed_wrap=fenced)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    margin = FENCE_S / 2 * 1e6   # profiler times are in us
+    spans = [(e.time_range.start - margin, e.time_range.end + margin) for e in events
+             if e.name == PROP_LABEL and e.device_type != cuda]
+    dev = [e for e in events if e.device_type == cuda and e.name != PROP_LABEL]
+    inside = [e for e in dev if any(s <= e.time_range.start <= t for s, t in spans)]
+    out = dict(switches=len(spans), device_ops_per_switch=len(inside) / max(len(spans), 1),
+               kernels={})
+    for k, sym in KERNEL_SYMBOLS.items():
+        row_k = {}
+        for where, evs in (("run", dev), ("reseeds", inside)):
+            mine = [e for e in evs if sym in e.name]
+            row_k[where] = dict(launches=len(mine), ms=sum(
+                e.time_range.end - e.time_range.start for e in mine) / 1e3)
+        out["kernels"][k] = row_k
+        log(f"  profile fast_motion_propagated: {k} {row_k['run']['ms']:.4f} ms over "
+            f"{row_k['run']['launches']} launches, of which the {len(spans)} reseeds "
+            f"{row_k['reseeds']['ms']:.4f} ms over {row_k['reseeds']['launches']}")
+    log(f"  profile fast_motion_propagated: {out['device_ops_per_switch']:.1f} device "
+        f"operations per propagated reseed; each resampler launched "
+        f"{out['kernels']['resample_rows']['reseeds']['launches']} times in the reseeds "
+        f"(by construction {len(spans)} x 96)")
+    return out
+
+
+@contextlib.contextmanager
+def timed_node(torch, rec):
+    """Inside the block, CUDA events around every ``DepthmapNode.process_frame``
+    and ``Depthmap.set_reference_image`` (``rec['frame']``, ``rec['reseed']``),
+    and the host clock around every finalization on the worker thread
+    (``rec['finalize_s']``), with the stream it ran on (``rec['streams']``)."""
+    from rpg_open_remode_tpu_torch.models.depthmap import Depthmap
+    from rpg_open_remode_tpu_torch.models.node import DepthmapNode
+
+    saved = (DepthmapNode.process_frame, Depthmap.set_reference_image,
+             DepthmapNode._complete_keyframe)
+
+    def events(fn, key):
+        def call(self, *args, **kw):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(self, *args, **kw)
+            e.record()
+            rec.setdefault(key, []).append((s, e))
+            return out
+        return call
+
+    def complete(self, *args):
+        rec.setdefault("streams", set()).add(torch.cuda.current_stream().cuda_stream)
+        t0 = time.perf_counter()
+        saved[2](self, *args)
+        rec.setdefault("finalize_s", []).append(time.perf_counter() - t0)
+
+    DepthmapNode.process_frame = events(saved[0], "frame")
+    Depthmap.set_reference_image = events(saved[1], "reseed")
+    DepthmapNode._complete_keyframe = complete
+    try:
+        yield
+    finally:
+        DepthmapNode.process_frame, Depthmap.set_reference_image, \
+            DepthmapNode._complete_keyframe = saved
+
+
+def rotation_to_quat(R):
+    """(qx, qy, qz, qw) of a rotation with a positive trace (the synthetic
+    camera turns by a few degrees)."""
+    tr = float(np.trace(R))
+    if tr <= 0:
+        raise ValueError("rotation too far from the identity")
+    s = 2.0 * np.sqrt(tr + 1.0)
+    return ((R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s, (R[1, 0] - R[0, 1]) / s, s / 4)
+
+
+def write_dataset(root, frames):
+    """The reference's on-disk layout (test/dataset.cpp): 8-bit PGM images,
+    ASCII-centimetre ``.depth`` files, a sequence file of T_world_curr."""
+    (root / "images").mkdir(parents=True)
+    (root / "depthmaps").mkdir()
+    lines = []
+    for i, fr in enumerate(frames):
+        name = f"frame_{i:04d}"
+        img = np.clip(np.round(fr.image * 255.0), 0, 255).astype(np.uint8)
+        h, w = img.shape
+        (root / "images" / f"{name}.pgm").write_bytes(f"P5\n{w} {h}\n255\n".encode() + img.tobytes())
+        np.savetxt(root / "depthmaps" / f"{name}.depth", fr.depth * 100.0, fmt="%.4f")
+        t, q = fr.T_world_curr[:, 3], rotation_to_quat(fr.T_world_curr[:, :3].astype(np.float64))
+        lines.append(" ".join([f"{name}.pgm"] + [f"{v:.9g}" for v in (*t, *q)]))
+    (root / "sequence.txt").write_text("\n".join(lines) + "\n")
+
+
+def cli_run(torch, P, kernels, argv, out_dir, propagate):
+    """``cli.main(argv)`` in-process with the launch counts zeroed just
+    before and read just after; checks the exit, the exported files, the
+    last checkpoint against the node's last keyframe, the worker's stream
+    and the counts against the path (TV-L1: 50 a keyframe; each resampler:
+    3 an update and 96 a propagated switch). Returns its figures."""
+    from rpg_open_remode_tpu_torch import cli
+    from rpg_open_remode_tpu_torch.io import load_state
+    from rpg_open_remode_tpu_torch.ops import propagate as prop
+
+    rec = {}
+    main_stream = torch.cuda.current_stream().cuda_stream
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with timed_node(torch, rec):
+        node = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n_kf, n_refs, n_frames = len(node.keyframes), len(rec["reseed"]), len(rec["frame"])
+    n_updates = n_frames - n_refs
+    n_prop = n_refs - 1 if propagate else 0
+    per_warp = 3 * n_updates + prop.PLANES * n_prop
+    want = dict(resample_rows=per_warp, resample_cols=per_warp, tvl1=50 * n_kf)
+    problems = [f"{k}: {launches[k]} launches, want {v}" for k, v in want.items()
+                if launches[k] != v]
+    if n_kf < 1 or launches["sweep"] < n_updates:
+        problems.append(f"{n_kf} keyframes, {launches['sweep']} sweeps for {n_updates} updates")
+    if rec.get("streams") != {main_stream}:
+        problems.append(f"finalization ran on streams {rec.get('streams')}, not {main_stream}")
+    stems = [out_dir / f"kf_{i:03d}" for i in range(n_kf)]
+    suffixes = ("_depth.npy", "_cloud.ply", "_convergence.png", "_state.npz")
+    missing = [str(s) + x for s in stems for x in suffixes if not Path(str(s) + x).is_file()]
+    if not (out_dir / "global_map.ply").is_file():
+        missing.append("global_map.ply")
+    if missing:
+        problems.append(f"missing exports {missing}")
+    else:
+        last = load_state(str(stems[-1]) + "_state.npz", device="cuda")
+        want_state = node.keyframes[-1].state
+        differ = [f.name for f in dataclasses.fields(last) if f.name != "scene" and not torch.equal(
+            getattr(last, f.name), getattr(want_state, f.name))]
+        differ += [f"scene.{f.name}" for f in dataclasses.fields(last.scene) if not torch.equal(
+            getattr(last.scene, f.name), getattr(want_state.scene, f.name))]
+        if differ:
+            problems.append(f"the last checkpoint differs from the last keyframe in {differ}")
+    ms = np.array([s.elapsed_time(e) for s, e in rec["frame"]])
+    reseed_ms = np.array([s.elapsed_time(e) for s, e in rec["reseed"]])
+    r = dict(frames=n_frames, keyframes=n_kf, updates=n_updates, switches=n_refs - 1,
+             launches=launches, wall_s=wall, frame_ms_median=float(np.median(ms)),
+             frame_ms_p90=float(np.percentile(ms, 90)),
+             switch_ms_median=float(np.median(reseed_ms[1:])) if n_refs > 1 else float("nan"),
+             finalize_ms_median=1e3 * float(np.median(rec["finalize_s"])),
+             converged_pct=[k.converged_percentage for k in node.keyframes])
+    log(f"  {n_frames} frames, {n_kf} keyframes, {n_refs - 1} switches "
+        f"({'propagated' if propagate else 'flat'}), {wall:.1f} s; launches {launches} "
+        f"(want {want}); per frame median {r['frame_ms_median']:.3f} ms, p90 "
+        f"{r['frame_ms_p90']:.3f} ms; switch median {r['switch_ms_median']:.3f} ms; "
+        f"finalization on the worker thread median {r['finalize_ms_median']:.1f} ms "
+        f"(TV-L1, download, exports)")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return r
+
+
+def host_io_timing(native, root, cloud):
+    """The host IO of a dataset run and of a keyframe's export: the depth
+    parse per frame of the on-disk dataset on both backends (median ms over
+    its first 10 frames; the values must be equal) and the share of a busy
+    Python loop on this thread that survives while a second thread parses
+    those files, as the prefetcher's thread does beside the frame loop
+    (ctypes releases the GIL for the native call; the numpy version's split
+    holds it); beside them the numpy PGM read per frame and the numpy PLY
+    write of the keyframe cloud ``cloud`` (median of 5, the same bytes)."""
+    depths = sorted((root / "depthmaps").glob("*.depth"))[:10]
+    images = sorted((root / "images").glob("*.pgm"))[:10]
+    raw = cloud.read_bytes()
+    pts = np.frombuffer(raw[raw.index(b"end_header\n") + 11:], "<f4").reshape(-1, 4)
+    h, w = native.read_pgm(str(images[0])).shape
+    backends = dict(numpy=native.parse_float_file_numpy)
+    if native.backend() == "native":
+        backends["native"] = native.parse_float_file
+
+    def spin(thread):
+        n, t0 = 0, time.perf_counter()
+        thread.start()
+        while thread.is_alive():
+            n += 1
+        return n / (time.perf_counter() - t0)
+
+    def median_ms(fn, args):
+        times = []
+        for a in args:
+            t0 = time.perf_counter()
+            fn(*a)
+            times.append(time.perf_counter() - t0)
+        return 1e3 * float(np.median(times))
+
+    target = cloud.parent / "host_io.ply"
+    out = dict(pgm_ms=median_ms(native.read_pgm, [(str(im),) for im in images]),
+               ply_ms=median_ms(native.write_ply, [(str(target), pts[:, :3], pts[:, 3])] * 5))
+    if target.read_bytes() != raw:
+        raise AssertionError("the PLY writer wrote other bytes for the same cloud")
+    log(f"  host IO (numpy): PGM read {out['pgm_ms']:.3f} ms per {w}x{h} frame, PLY write "
+        f"{out['ply_ms']:.3f} ms for {pts.shape[0]} points")
+    alone = spin(threading.Thread(target=time.sleep, args=(0.5,)))
+    got = {}
+    for name, parse in backends.items():
+        args = [(str(d), h * w, 0.01) for d in depths]
+        r = dict(parse_ms=median_ms(parse, args),
+                 loop_share=spin(threading.Thread(target=lambda: [parse(*a) for a in args]))
+                 / alone)
+        got[name] = [parse(*a) for a in args[-1:]]
+        out[name] = r
+        log(f"  host IO {name}: depth parse {r['parse_ms']:.3f} ms per {w}x{h} frame (median "
+            f"of {len(depths)}); a Python loop beside a parsing thread keeps "
+            f"{r['loop_share']:.3f} of its rate")
+    if "native" in got and not np.array_equal(got["native"][0], got["numpy"][0]):
+        raise AssertionError("the native and numpy depth parses disagree")
+    return out
+
+
+def cli_phase(torch, P, kernels, over_table):
+    """The CLI as a user starts it: the synthetic run with propagation, map,
+    checkpoints and convergence overlays, then a run on an on-disk dataset
+    written from the first 40 over_table frames."""
+    from rpg_open_remode_tpu_torch import native
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        tmp = Path(tmp)
+        out = {}
+        log("  run --synthetic --frames 200 --propagate --map-voxel 0.01 --checkpoint "
+            "--conv-every 10")
+        argv = ["--device", "cuda", "run", "--synthetic", "--frames", "200", "--propagate",
+                "--map-voxel", "0.01", "--checkpoint", "--conv-every", "10",
+                "--out", str(tmp / "synthetic")]
+        out["synthetic"] = cli_run(torch, P, kernels, argv, tmp / "synthetic", True)
+        if not (tmp / "synthetic" / "conv_latest.png").is_file():
+            raise AssertionError("--conv-every wrote no conv_latest.png")
+        t0 = time.perf_counter()
+        write_dataset(tmp / "dataset", over_table[:40])
+        log(f"  wrote a 40-frame dataset in {time.perf_counter() - t0:.1f} s; host IO "
+            f"backend: {native.backend()}")
+        last_cloud = tmp / "synthetic" / f"kf_{out['synthetic']['keyframes'] - 1:03d}_cloud.ply"
+        out["host_io"] = host_io_timing(native, tmp / "dataset", last_cloud)
+        argv = ["--device", "cuda", "run", "--data-path", str(tmp / "dataset"), "--sequence",
+                "sequence.txt", "--checkpoint", "--out", str(tmp / "dataset_out")]
+        out["dataset"] = cli_run(torch, P, kernels, argv, tmp / "dataset_out", False)
+        out["native_backend"] = native.backend()
+    return out
+
+
 # -- kernel timings ------------------------------------------------------------
 
 
-def kernel_timings(torch, dev, P, run640, calls):
+def kernel_timings(torch, dev, P, run640, run720, calls):
     """Each kernel's time on frame KEEP_FRAME's own inputs (and the warps' on
-    random coordinates too), beside its plain version and its bound."""
+    random coordinates too), beside its plain version and its bound; TV-L1
+    also on the 1280x720 run's final state (the shapes of the tiled Pallas
+    kernel, row 5)."""
     from rpg_open_remode_tpu_torch.ops import denoise_cuda, resample_cuda, sweep_cuda
 
     eng = run640["eng"]
@@ -675,6 +1109,15 @@ def kernel_timings(torch, dev, P, run640, calls):
         ms=graph_ms(torch, lambda: denoise_cuda.tvl1(mu, g, 0.5, 200, cfg), n=2, reps=5),
         plain_ms=cuda_ms(torch, lambda: denoise_cuda.tvl1_plain(mu, g, 0.5, 200, cfg), 2, 1),
         bound=bound(4 * 3 * hh * ww, 200 * 28 * hh * ww), work="200 iterations at 640x480")
+    e720 = run720["eng"]
+    g720, mu720 = tvl1_weights(e720.state, e720.cfg), e720.state.mu.contiguous()
+    h7, w7 = mu720.shape
+    rows["tvl1 1280x720"] = dict(
+        ms=graph_ms(torch, lambda: denoise_cuda.tvl1(mu720, g720, 0.5, 200, e720.cfg), n=2, reps=5),
+        plain_ms=cuda_ms(torch, lambda: denoise_cuda.tvl1_plain(mu720, g720, 0.5, 200, e720.cfg),
+                         2, 1),
+        bound=bound(4 * 3 * h7 * w7, 200 * 28 * h7 * w7),
+        work="200 iterations at 1280x720 (the tiled Pallas kernel's shapes)")
     for k, r in rows.items():
         extra = ""
         if "lanes" in r:
@@ -814,19 +1257,19 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    log("== card")
+    phase("card")
     log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, devices {torch.cuda.device_count()}")
 
-    log("== build")
+    phase("build")
     kernels.library()
     log(f"kernels built and loaded in {kernels.build_seconds:.2f} s")
 
-    log("== kernel parity (numpy-seeded, ragged-band and edge-case inputs, main-path shapes)")
+    phase("kernel parity (numpy-seeded, ragged-band and edge-case inputs, main-path shapes)")
     errs = kernel_parity(torch, dev, P)
 
-    log("== main path 640x480 (over_table: 200 frames, one keyframe, denoise)")
+    phase("main path 640x480 (over_table: 200 frames, one keyframe, denoise)")
     frames640 = make_frames(640, 480, CAM_640, 200)
     run640 = drive(torch, P, kernels, frames640, CAM_640, keep_frame=KEEP_FRAME)
     report_run("640x480", run640)
@@ -836,27 +1279,41 @@ def main() -> int:
         raise AssertionError(f"640x480 accuracy outside the bounds: {a}")
     log(f"  within bounds of the JAX over_table row {OVER_TABLE}")
 
-    log(f"== kernel parity (frame {KEEP_FRAME}'s own kernel inputs)")
+    phase(f"kernel parity (frame {KEEP_FRAME}'s own kernel inputs)")
     calls = frame_calls(run640)
     for k, e in real_input_parity(torch, P, run640, calls).items():
         errs[k] = max(errs[k], e)
 
-    log("== profiler over a replay of the 640x480 run; work, bounds and lane use of its calls")
+    phase("profiler over a replay of the 640x480 run; work, bounds and lane use of its calls")
     prof, _ = profile_run(torch, P, frames640, CAM_640, "640x480 run", run640["wall_ms"],
                           account=True)
     work = prof.pop("work")
 
-    log("== main path 1280x720 (80 frames, focal-scaled config, denoise)")
+    phase("main path 1280x720 (80 frames, focal-scaled config, denoise)")
     run720 = drive(torch, P, kernels, make_frames(1280, 720, CAM_720, 80), CAM_720)
     report_run("1280x720", run720)
     log(f"  beside the JAX hd_1280x720 row {HD_ROW}")
 
-    log(f"== kernel timings (frame {KEEP_FRAME} of the 640x480 run)")
-    rows = kernel_timings(torch, dev, P, run640, calls)
+    phase("keyframe lifecycle accuracy (eval.py's keyframe segments, 640x480, hardened scene)")
+    fast = make_frames(640, 480, CAM_640, LIFECYCLE_ROWS["fast_motion"]["n"], step=FAST_STEP)
+    life, kept = lifecycle_accuracy(torch, P, frames640, fast)
+
+    phase(f"depth propagation (switch {KEEP_SWITCH} of the fast_motion_propagated run)")
+    prop = propagation(torch, P, kept)
+    errs["resample_rows"] = max(errs["resample_rows"], prop["resample_rows"]["max_abs_err"])
+    errs["resample_cols"] = max(errs["resample_cols"], prop["resample_cols"]["max_abs_err"])
+    prop_run = profile_lifecycle(torch, P, fast)
+    del kept, fast
+
+    phase("the CLI on the card (cli.main in-process)")
+    cli_out = cli_phase(torch, P, kernels, frames640)
+
+    phase(f"kernel timings (frame {KEEP_FRAME} of the 640x480 run; TV-L1 also at 1280x720)")
+    rows = kernel_timings(torch, dev, P, run640, run720, calls)
 
     base = None
     if opts.baseline:
-        log(f"== baseline kernels from {opts.baseline}, timed in turns with these")
+        phase(f"baseline kernels from {opts.baseline}, timed in turns with these")
         base = baseline_compare(torch, P, kernels, opts.baseline, calls, frames640, run640,
                                 run720)
 
@@ -873,7 +1330,16 @@ def main() -> int:
                          lane_efficiency_per_pixel=share(r["lanes"]["per_pixel"]),
                          ms_coarse=c["ms"], plain_ms_coarse=c["plain_ms"])
         if k.startswith("resample"):
-            entry.update(ms_random_coords=r["ms_random"])
+            pr = prop[k]
+            entry.update(ms_random_coords=r["ms_random"], launches_per_switch=pr["calls"],
+                         ms_switch=pr["ms"], plain_ms_switch=pr["plain_ms"],
+                         bound_ms_switch=pr["bound"][0],
+                         run_ms_reseeds=prop_run["kernels"][k]["reseeds"]["ms"])
+        if k == "tvl1":
+            t7 = rows["tvl1 1280x720"]
+            entry.update(ms_1280x720=t7["ms"], plain_ms_1280x720=t7["plain_ms"],
+                         bound_ms_1280x720=t7["bound"][0])
+        entry["launches_lifecycle"] = cli_out["synthetic"]["launches"][k]
         out.append(entry)
     log("  no single PyTorch call computes any of these kernels' functions (library_ms null)")
     log(f"== total {time.perf_counter() - t_start:.1f} s")
@@ -888,7 +1354,8 @@ def main() -> int:
             json.dump(plain(dict(
                 card=smi, build_s=kernels.build_seconds, kernels=out,
                 run640={k: run640[k] for k in keep}, run720={k: run720[k] for k in keep},
-                timings=rows, work=work, profile=prof, baseline=base)), f, indent=1)
+                timings=rows, work=work, profile=prof, lifecycle=life, propagation=prop,
+                profile_lifecycle=prop_run, cli=cli_out, baseline=base)), f, indent=1)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

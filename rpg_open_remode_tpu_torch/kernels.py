@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -52,6 +53,7 @@ _SIGNATURES = {
 }
 
 _lib = None
+_lib_lock = threading.Lock()  # the node's worker thread launches TV-L1
 build_seconds = None
 
 
@@ -118,22 +120,26 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first use. Raises if CUDA or nvcc
-    is missing or the build fails."""
+    """The loaded kernel library, built and loaded once, at first use, by
+    whichever thread comes first. Raises if CUDA or nvcc is missing or the
+    build fails."""
     global _lib, build_seconds
     if _lib is not None:
         return _lib
-    if not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available: the kernels need a GPU")
-    t0 = time.perf_counter()
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    build_seconds = time.perf_counter() - t0
-    _lib = lib
-    return lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available: the kernels need a GPU")
+        t0 = time.perf_counter()
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        build_seconds = time.perf_counter() - t0
+        _lib = lib
+        return lib
 
 
 def check(err: int, name: str) -> None:

@@ -22,7 +22,7 @@ from rpg_open_remode_tpu_torch.config import ConvergenceState, RemodeConfig
 from rpg_open_remode_tpu_torch.models.state import SceneParams, SeedState, empty_state
 from rpg_open_remode_tpu_torch.ops import denoise as denoise_ops
 from rpg_open_remode_tpu_torch.ops import (
-    epipolar, reduction, seed_check, seed_init, seed_update,
+    epipolar, propagate, reduction, seed_check, seed_init, seed_update,
 )
 from rpg_open_remode_tpu_torch.utils import se3
 from rpg_open_remode_tpu_torch.utils import warp as warp_ops
@@ -48,6 +48,17 @@ def set_reference(state: SeedState, ref_img, T_curr_world, scene: SceneParams,
     """New keyframe (SeedMatrix::setReferenceImage, seed_matrix.cu:87-118)."""
     return seed_init.init_seeds(
         state, prep_image(ref_img), se3.inv(T_curr_world), scene, cfg
+    )
+
+
+def _set_reference_propagated(state: SeedState, ref_img, T_curr_world,
+                              scene: SceneParams, cam: PinholeCamera,
+                              cfg: RemodeConfig) -> SeedState:
+    """New keyframe warm-started from the outgoing keyframe's posterior
+    (``cfg.propagate_depth``; ``ops/propagate.py``)."""
+    prior = propagate.propagate_depth(state, T_curr_world, scene, cam, cfg)
+    return seed_init.init_seeds(
+        state, prep_image(ref_img), se3.inv(T_curr_world), scene, cfg, prior=prior
     )
 
 
@@ -165,7 +176,7 @@ class Depthmap:
             self.height, self.width, self.cam, k1, k2, p1, p2
         )
 
-    def _input_image(self, img) -> torch.Tensor:
+    def input_image(self, img) -> torch.Tensor:
         """8-bit -> float [0, 1], then the optional undistortion remap."""
         img = prep_image(self._tensor(img))
         if self._undistort_grid is not None:
@@ -182,10 +193,15 @@ class Depthmap:
         self._has_reference = True
 
     def set_reference_image(self, img, T_curr_world, min_depth, max_depth) -> bool:
+        """New keyframe. With ``cfg.propagate_depth`` and a previous keyframe
+        (and no undistortion grid, as in the JAX facade), the seeds are
+        warm-started from the outgoing posterior; otherwise flat."""
         scene = SceneParams.create(min_depth, max_depth, self.cfg, device=self.device)
-        self.state = set_reference(
-            self.state, self._input_image(img), self._pose(T_curr_world), scene, self.cfg
-        )
+        img, T = self.input_image(img), self._pose(T_curr_world)
+        if self._undistort_grid is None and self.cfg.propagate_depth and self._has_reference:
+            self.state = _set_reference_propagated(self.state, img, T, scene, self.cam, self.cfg)
+        else:
+            self.state = set_reference(self.state, img, T, scene, self.cfg)
         self._has_reference = True
         return True
 
@@ -194,7 +210,7 @@ class Depthmap:
         if not self._has_reference:
             raise RuntimeError("set_reference_image must be called first")
         self.state, stats = update_step(
-            self.state, self._input_image(img), self._pose(T_curr_world), self.cam,
+            self.state, self.input_image(img), self._pose(T_curr_world), self.cam,
             self.cfg,
         )
         return stats
@@ -204,7 +220,7 @@ class Depthmap:
         returns the ``[K, 7]`` packed metrics on the device."""
         if not self._has_reference:
             raise RuntimeError("set_reference_image must be called first")
-        imgs = [self._input_image(img) for img in imgs]
+        imgs = [self.input_image(img) for img in imgs]
         self.state, packed = update_chunk(
             self.state, imgs, self._pose(Ts_curr_world), self.cam, self.cfg
         )
@@ -219,6 +235,19 @@ class Depthmap:
     def convergence_map(self) -> np.ndarray:
         return self.state.conv.cpu().numpy()
 
+    def reference_image(self) -> np.ndarray:
+        """The keyframe image, float [0, 1] (getReferenceImage,
+        depthmap.cpp:141-145)."""
+        return self.state.ref_img.cpu().numpy()
+
     def converged_percentage(self) -> float:
         """getConvergedPercentage (depthmap.cpp:150-154)."""
         return float(self.state.converged_fraction()) * 100.0
+
+    @staticmethod
+    def scale_mat(depth: np.ndarray) -> np.ndarray:
+        """Min-max normalize to [0, 1] for display (depthmap.cpp:158-169)."""
+        lo, hi = float(np.min(depth)), float(np.max(depth))
+        if hi <= lo:
+            return np.zeros_like(depth)
+        return (depth - lo) / (hi - lo)

@@ -34,20 +34,35 @@ def init_seeds(
     T_world_ref: torch.Tensor,
     scene: SceneParams,
     cfg: RemodeConfig,
+    prior=None,
 ) -> SeedState:
-    """Reset the filter on a new reference keyframe (seed_init.cu:56-60)."""
+    """Reset the filter on a new reference keyframe (seed_init.cu:56-60).
+
+    ``prior``: optional ``(mu, sigma_sq, a, b, valid)`` warm start (keyframe
+    depth propagation, ``ops/propagate.py``); pixels where ``valid`` is not
+    set keep the reference's flat initialization."""
     sum_t, denom = template_stats(ref_img, cfg)
     shape = ref_img.shape
     dev = ref_img.device
+    mu0 = scene.avg_depth.expand(shape).clone()
+    sig0 = scene.sigma_sq_max.expand(shape).clone()
+    a0 = torch.full(shape, cfg.a_init, dtype=torch.float32, device=dev)
+    b0 = torch.full(shape, cfg.b_init, dtype=torch.float32, device=dev)
+    if prior is not None:
+        p_mu, p_sig, p_a, p_b, p_valid = prior
+        mu0 = torch.where(p_valid, p_mu, mu0)
+        sig0 = torch.where(p_valid, p_sig, sig0)
+        a0 = torch.where(p_valid, p_a, a0)
+        b0 = torch.where(p_valid, p_b, b0)
     return SeedState(
         ref_img=ref_img,
         sum_templ=sum_t,
         const_templ_denom=denom,
         f_ref=state.f_ref,  # bearings depend only on the camera
-        mu=scene.avg_depth.expand(shape).clone(),
-        sigma_sq=scene.sigma_sq_max.expand(shape).clone(),
-        a=torch.full(shape, cfg.a_init, dtype=torch.float32, device=dev),
-        b=torch.full(shape, cfg.b_init, dtype=torch.float32, device=dev),
+        mu=mu0,
+        sigma_sq=sig0,
+        a=a0,
+        b=b0,
         conv=torch.full(shape, int(ConvergenceState.UPDATE), dtype=torch.int32, device=dev),
         match_u=torch.zeros(shape, dtype=torch.float32, device=dev),
         match_v=torch.zeros(shape, dtype=torch.float32, device=dev),

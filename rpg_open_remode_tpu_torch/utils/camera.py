@@ -55,4 +55,6 @@ class PinholeCamera:
         )
         f = self.cam2world(u, v)
         f = f / torch.linalg.norm(f, dim=-1, keepdim=True)
-        return torch.movedim(f, -1, 0)
+        # contiguous: reductions over the channel axis then round the same
+        # whether the state was computed here or loaded from a checkpoint
+        return torch.movedim(f, -1, 0).contiguous()

@@ -19,6 +19,8 @@ generation, not device compute).
 from __future__ import annotations
 
 import dataclasses
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -140,8 +142,8 @@ def generate(
     )
     dirs_cam /= np.linalg.norm(dirs_cam, axis=-1, keepdims=True)
 
-    frames: list[SyntheticFrame] = []
-    for i in range(n_frames):
+    def render(i):
+        """Frame i before sensor noise (needs no random numbers)."""
         if motion == "forward":
             # Dominantly axial dolly (epipole inside the image): the
             # degenerate regime for stereo rectification, handled by the
@@ -217,6 +219,15 @@ def generate(
                 cam["cx"] ** 2 + cam["cy"] ** 2
             )
             img = img * (1.0 - vignette * ru2) ** 2
+        return img, t_hit, T_world_curr
+
+    # frames render in parallel (numpy releases the GIL in its array loops);
+    # the noise is drawn afterwards in frame order, so the random stream and
+    # every frame are as in a sequential render
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        rendered = list(pool.map(render, range(n_frames)))
+    frames: list[SyntheticFrame] = []
+    for img, t_hit, T_world_curr in rendered:
         if noise_sigma > 0.0:
             img = img + rng.normal(0.0, noise_sigma, size=img.shape)
         img = np.clip(img, 0.0, 1.0).astype(np.float32)

@@ -37,14 +37,18 @@ def test_for_camera_equal_field_by_field(fx):
 
 
 def test_port_imports_no_jax():
-    """Importing the port (and its engine) loads no jax module and no module
-    of the JAX package. The port's own name shares the prefix
-    ``rpg_open_remode_tpu``, so the JAX package's modules are matched with
-    the dot."""
+    """Importing the port (its engine, the lifecycle, IO and CLI) loads no
+    jax module and no module of the JAX package. The port's own name shares
+    the prefix ``rpg_open_remode_tpu``, so the JAX package's modules are
+    matched with the dot."""
     code = (
         "import sys, rpg_open_remode_tpu_torch as p\n"
         "from rpg_open_remode_tpu_torch.models import depthmap\n"
         "from rpg_open_remode_tpu_torch.ops import rect_match, sweep_cuda, denoise_cuda\n"
+        "from rpg_open_remode_tpu_torch import cli, io, native\n"
+        "from rpg_open_remode_tpu_torch.models import node\n"
+        "from rpg_open_remode_tpu_torch.ops import propagate\n"
+        "from rpg_open_remode_tpu_torch.utils import devices, profiling\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('jaxlib') or m == 'rpg_open_remode_tpu' "
         "or m.startswith('rpg_open_remode_tpu.')]\n"
