@@ -16,6 +16,13 @@ timed on those. A replay of the 640x480 run under ``torch.profiler`` sums
 each kernel's device time and the device's busy share; it also keeps every
 sweep call's inputs, and afterwards each call's work, bound and lane use
 (measured by the sweep kernel's counting build) are added up over the run.
+Then the keyframe lifecycle: eval.py's keyframe-segment rows, propagation,
+and the CLI in-process; then the concurrent-keyframe ring: four slots held
+bit for bit against four single engines, ``MultiKeyframeNode`` over the
+200 frames at B = 1, 2 and 4, the CLI's ``run --keyframes 4 --propagate``
+with exact launch counts, and the epipolar-walk oracle against the
+rectified matcher on frame 10. Each resample pass is also timed as one
+``grid_sample`` call, the library yardstick.
 
 ``--baseline DIR`` also builds the kernels of another checkout's
 ``rpg_open_remode_tpu_torch/csrc`` (for example the parent commit, unpacked
@@ -65,9 +72,6 @@ KEEP_FRAME = 10
 # in the 640x480 run on frame 7 but not on frame 10; its inputs are kept
 # from the last frame up to KEEP_FRAME that runs it
 COARSE_FROM = 3
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) flop/s
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
 # warp width; a one-thread-per-pixel sweep runs 32 consecutive x in a warp
 WARP = 32
 
@@ -154,8 +158,13 @@ def graph_ms(torch, fn, n=20, reps=7):
 
 
 def bound(nbytes, flops):
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / FP32_FLOPS * 1e3
+    """The least ms the card needs for ``nbytes`` and ``flops`` at its
+    data-sheet peaks (``ops/accounting``: H100 SXM HBM, fp32 outside the
+    tensor cores), and which of the two bounds it."""
+    from rpg_open_remode_tpu_torch.ops.accounting import PEAK_FP32_TFLOPS, PEAK_HBM_GBPS
+
+    t_b = nbytes / (PEAK_HBM_GBPS * 1e9) * 1e3
+    t_f = flops / (PEAK_FP32_TFLOPS * 1e12) * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -370,12 +379,11 @@ def replay(torch, P, frames, cam, kernels=None, events=None, kept=None, hook=Non
     return eng, den, (time.perf_counter() - t0) * 1e3
 
 
-def accuracy(eng, den, gt, depth_range, P):
-    """eval.py's _accuracy: converged %, within 2.6 % of range raw/denoised
-    (``den`` None: raw only, as eval.py's denoise=False)."""
+def accuracy(conv, mu, den, gt, depth_range, P):
+    """eval.py's _accuracy on a convergence map and depth map: converged %,
+    within 2.6 % of range raw/denoised (``den`` None: raw only, as
+    eval.py's denoise=False)."""
     err_bound = 0.026 * depth_range
-    conv = eng.convergence_map()
-    mu = eng.depthmap()
     interior = np.zeros_like(conv, bool)
     interior[5:-5, 5:-5] = True
     valid_gt = np.isfinite(gt) & interior
@@ -403,7 +411,7 @@ def drive(torch, P, kernels, frames, cam, keep_frame=None):
     frame_ms, denoise_ms = times[:-1], float(times[-1])
     gt = frames[0].depth
     d0 = gt[np.isfinite(gt)]
-    acc = accuracy(eng, den, gt, float(d0.max() - d0.min()), P)
+    acc = accuracy(eng.convergence_map(), eng.depthmap(), den, gt, float(d0.max() - d0.min()), P)
     if not np.isfinite(den).all() or not np.isfinite(eng.depthmap()).all():
         raise AssertionError("non-finite depth output")
     missing = [k for k, v in launches.items() if v <= 0]
@@ -500,37 +508,20 @@ def real_input_parity(torch, P, run640, calls):
 
 
 def sweep_work(torch, args):
-    """What one sweep call's data needs. ``pairs``: the (pixel, plane)
-    pairs its band, footprint limits and plane cap admit at pixels whose
-    reference patch passes the guards; ``flops``/``bytes``: for the bound.
-    ``slots_pixel_model``: the lane-slots that a one-thread-per-pixel loop
-    (the sweep before its tile-balanced design) takes by a model of its
-    schedule, not a measurement (a warp of 32 consecutive x runs as long as
-    its longest band)."""
-    from rpg_open_remode_tpu_torch.ops.sweep_cuda import box_zero
+    """What one sweep call's data needs (``ops/accounting.call_work``: the
+    pairs the kernel scores, its flops and bytes), and ``slots_pixel_model``:
+    the lane-slots that a one-thread-per-pixel loop (the sweep before its
+    tile-balanced design) takes by a model of its schedule, not a
+    measurement (a warp of 32 consecutive x runs as long as its longest
+    band)."""
+    from rpg_open_remode_tpu_torch.ops.accounting import call_work
 
-    curr, xlim, ref, valid, lo, hi, _, planes, _, patch, _ = args
-    area = patch * patch
-    h, w = ref.shape
-    st = box_zero(ref, patch)
-    denom = area * box_zero(ref * ref, patch) - st * st
-    ref_ok = (box_zero((valid > 0.999).float(), patch) > area - 0.5) & (denom > 1e-10)
-    klo = torch.clamp(torch.ceil(lo - 0.5), min=0.0)
-    khi = torch.clamp(torch.floor(hi + 0.5), max=planes - 1.0)
-    x = torch.arange(w, device=ref.device, dtype=torch.float32)[None, :]
-    k0 = torch.maximum(klo, torch.ceil(x - xlim[:, 1:2]))
-    k1 = torch.minimum(khi, torch.floor(x - xlim[:, 0:1]))
-    zero = torch.zeros_like(klo)
-    swept = ref_ok & (klo <= khi)
-    n_band = torch.where(swept, khi - klo + 1, zero)
-    n_pair = torch.where(swept & (k0 <= k1), k1 - k0 + 1, zero)
-    rows = torch.nn.functional.pad(n_band, (0, -(-w // WARP) * WARP - w))
-    slots_pixel = float(rows.reshape(h, -1, WARP).amax(-1).sum() * WARP)
-    pairs = float(n_pair.sum())
-    pixels = float((n_pair > 0).sum())
-    nbytes = 4 * (curr.numel() + xlim.numel() + 6 * h * w) + h * w
-    return dict(pairs=pairs, pixels=pixels, slots_pixel_model=slots_pixel,
-                flops=pairs * (5 * area + 12) + float(swept.sum()) * 4 * area, bytes=nbytes)
+    wk = call_work(*args)
+    band = wk.pop("band")
+    h, w = band.shape
+    rows = torch.nn.functional.pad(band, (0, -(-w // WARP) * WARP - w))
+    wk["slots_pixel_model"] = float(rows.reshape(h, -1, WARP).amax(-1).sum() * WARP)
+    return wk
 
 
 def resample_bytes(kind, img, coord):
@@ -687,7 +678,8 @@ def keyframe_segments(torch, P, frames, cam, seg, propagate, keep_switch=None,
             eng.set_reference_image(frames[i].image, Tcw(frames[i]), *bounds)
         for fr in frames[i + 1:i + seg]:
             eng.update(fr.image, Tcw(fr))
-        per_kf.append(accuracy(eng, None, gt, float(d.max() - d.min()), P))
+        per_kf.append(accuracy(eng.convergence_map(), eng.depthmap(), None, gt,
+                               float(d.max() - d.min()), P))
 
     def mean_of(key):
         vals = [a[key] for a in per_kf if np.isfinite(a[key])]
@@ -761,10 +753,17 @@ def propagation(torch, P, kept):
             raise AssertionError(f"resample_{kind} differs from its plain version in propagation")
         nb = sum(resample_bytes(kind, *a)[0] for a in args)
         nf = sum(resample_bytes(kind, *a)[1] for a in args)
+        libs = [grid_sample_call(torch, kind, *a) for a in args]
+        lib_err = max(e for _, e in libs)
+        if lib_err > GRID_SAMPLE_TOL:
+            raise AssertionError(f"grid_sample is no resample_{kind}: {lib_err:.3g}")
         out[f"resample_{kind}"] = dict(
             calls=len(args), max_abs_err=err, bound=bound(nb, nf),
             ms=graph_ms(torch, lambda: [fn(*a) for a in args], n=2, reps=5),
-            plain_ms=cuda_ms(torch, lambda: [plain(*a) for a in args], 3, 1))
+            plain_ms=cuda_ms(torch, lambda: [plain(*a) for a in args], 3, 1),
+            library_ms=graph_ms(torch, lambda: [f() for f, _ in libs], n=2, reps=5),
+            library_err=lib_err)
+        del libs
     out["reseed_ms"] = cuda_ms(torch, reseed, 5, 1)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         reseed()
@@ -778,7 +777,9 @@ def propagation(torch, P, kept):
     for kind in ("rows", "cols"):
         r = out[f"resample_{kind}"]
         log(f"  resample_{kind}, the reseed's {r['calls']} calls: {r['ms']:.4f} ms (CUDA graph; "
-            f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by {r['bound'][1]})")
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by {r['bound'][1]}; "
+            f"grid_sample {r['library_ms']:.4f} ms, max err {r['library_err']:.3g} of the "
+            f"image's largest magnitude)")
     return out
 
 
@@ -835,16 +836,20 @@ def profile_lifecycle(torch, P, fast):
 
 
 @contextlib.contextmanager
-def timed_node(torch, rec):
-    """Inside the block, CUDA events around every ``DepthmapNode.process_frame``
-    and ``Depthmap.set_reference_image`` (``rec['frame']``, ``rec['reseed']``),
+def timed_node(torch, rec, ring=False):
+    """Inside the block, CUDA events around every ``process_frame`` of the
+    node (``DepthmapNode``, or ``MultiKeyframeNode`` with ``ring``) and
+    every keyframe seed (``Depthmap.set_reference_image``,
+    ``BatchedDepthmap.seed_keyframe``) (``rec['frame']``, ``rec['reseed']``),
     and the host clock around every finalization on the worker thread
     (``rec['finalize_s']``), with the stream it ran on (``rec['streams']``)."""
     from rpg_open_remode_tpu_torch.models.depthmap import Depthmap
-    from rpg_open_remode_tpu_torch.models.node import DepthmapNode
+    from rpg_open_remode_tpu_torch.models.multikeyframe import BatchedDepthmap, MultiKeyframeNode
+    from rpg_open_remode_tpu_torch.models.node import DepthmapNode, LifecycleNode
 
-    saved = (DepthmapNode.process_frame, Depthmap.set_reference_image,
-             DepthmapNode._complete_keyframe)
+    node_cls, (eng_cls, seed) = ((MultiKeyframeNode, (BatchedDepthmap, "seed_keyframe")) if ring
+                                 else (DepthmapNode, (Depthmap, "set_reference_image")))
+    saved = (node_cls.process_frame, getattr(eng_cls, seed), LifecycleNode._complete_keyframe)
 
     def events(fn, key):
         def call(self, *args, **kw):
@@ -862,14 +867,14 @@ def timed_node(torch, rec):
         saved[2](self, *args)
         rec.setdefault("finalize_s", []).append(time.perf_counter() - t0)
 
-    DepthmapNode.process_frame = events(saved[0], "frame")
-    Depthmap.set_reference_image = events(saved[1], "reseed")
-    DepthmapNode._complete_keyframe = complete
+    node_cls.process_frame = events(saved[0], "frame")
+    setattr(eng_cls, seed, events(saved[1], "reseed"))
+    LifecycleNode._complete_keyframe = complete
     try:
         yield
     finally:
-        DepthmapNode.process_frame, Depthmap.set_reference_image, \
-            DepthmapNode._complete_keyframe = saved
+        node_cls.process_frame, LifecycleNode._complete_keyframe = saved[0], saved[2]
+        setattr(eng_cls, seed, saved[1])
 
 
 def rotation_to_quat(R):
@@ -899,12 +904,14 @@ def write_dataset(root, frames):
     (root / "sequence.txt").write_text("\n".join(lines) + "\n")
 
 
-def cli_run(torch, P, kernels, argv, out_dir, propagate):
+def cli_run(torch, P, kernels, argv, out_dir, propagate, keyframes=1):
     """``cli.main(argv)`` in-process with the launch counts zeroed just
-    before and read just after; checks the exit, the exported files, the
-    last checkpoint against the node's last keyframe, the worker's stream
-    and the counts against the path (TV-L1: 50 a keyframe; each resampler:
-    3 an update and 96 a propagated switch). Returns its figures."""
+    before and read just after; checks the exit, the exported files, with
+    ``--checkpoint`` the last checkpoint against the node's last keyframe,
+    the worker's stream and the counts against the path (TV-L1: 50 a
+    keyframe; each resampler: 3 a slot-update and 96 a propagated reseed;
+    the sweep 1 or 2 a slot-update). ``keyframes`` > 1: the ring's run.
+    Returns its figures."""
     from rpg_open_remode_tpu_torch import cli
     from rpg_open_remode_tpu_torch.io import load_state
     from rpg_open_remode_tpu_torch.ops import propagate as prop
@@ -914,30 +921,36 @@ def cli_run(torch, P, kernels, argv, out_dir, propagate):
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    with timed_node(torch, rec):
+    with timed_node(torch, rec, ring=keyframes > 1):
         node = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    n_kf, n_refs, n_frames = len(node.keyframes), len(rec["reseed"]), len(rec["frame"])
-    n_updates = n_frames - n_refs
-    n_prop = n_refs - 1 if propagate else 0
-    per_warp = 3 * n_updates + prop.PLANES * n_prop
+    n_kf, n_seeds, n_frames = len(node.keyframes), len(rec["reseed"]), len(rec["frame"])
+    # the first frame seeds every slot, flat; each later seed is a switch
+    if keyframes > 1:
+        n_updates = (n_frames - 1) * keyframes
+    else:
+        n_updates = n_frames - n_seeds
+    n_switches = n_seeds - keyframes
+    per_warp = 3 * n_updates + prop.PLANES * (n_switches if propagate else 0)
     want = dict(resample_rows=per_warp, resample_cols=per_warp, tvl1=50 * n_kf)
     problems = [f"{k}: {launches[k]} launches, want {v}" for k, v in want.items()
                 if launches[k] != v]
-    if n_kf < 1 or launches["sweep"] < n_updates:
+    if n_kf < 1 or not n_updates <= launches["sweep"] <= 2 * n_updates:
         problems.append(f"{n_kf} keyframes, {launches['sweep']} sweeps for {n_updates} updates")
     if rec.get("streams") != {main_stream}:
         problems.append(f"finalization ran on streams {rec.get('streams')}, not {main_stream}")
+    checkpoint = "--checkpoint" in argv
     stems = [out_dir / f"kf_{i:03d}" for i in range(n_kf)]
-    suffixes = ("_depth.npy", "_cloud.ply", "_convergence.png", "_state.npz")
+    suffixes = ("_depth.npy", "_cloud.ply", "_convergence.png") + (
+        ("_state.npz",) if checkpoint else ())
     missing = [str(s) + x for s in stems for x in suffixes if not Path(str(s) + x).is_file()]
     if not (out_dir / "global_map.ply").is_file():
         missing.append("global_map.ply")
     if missing:
         problems.append(f"missing exports {missing}")
-    else:
+    elif checkpoint:
         last = load_state(str(stems[-1]) + "_state.npz", device="cuda")
         want_state = node.keyframes[-1].state
         differ = [f.name for f in dataclasses.fields(last) if f.name != "scene" and not torch.equal(
@@ -947,19 +960,19 @@ def cli_run(torch, P, kernels, argv, out_dir, propagate):
         if differ:
             problems.append(f"the last checkpoint differs from the last keyframe in {differ}")
     ms = np.array([s.elapsed_time(e) for s, e in rec["frame"]])
-    reseed_ms = np.array([s.elapsed_time(e) for s, e in rec["reseed"]])
-    r = dict(frames=n_frames, keyframes=n_kf, updates=n_updates, switches=n_refs - 1,
+    reseed_ms = np.array([s.elapsed_time(e) for s, e in rec["reseed"]])[keyframes:]
+    r = dict(frames=n_frames, keyframes=n_kf, updates=n_updates, switches=n_switches,
              launches=launches, wall_s=wall, frame_ms_median=float(np.median(ms)),
              frame_ms_p90=float(np.percentile(ms, 90)),
-             switch_ms_median=float(np.median(reseed_ms[1:])) if n_refs > 1 else float("nan"),
+             switch_ms_median=float(np.median(reseed_ms)) if n_switches else float("nan"),
              finalize_ms_median=1e3 * float(np.median(rec["finalize_s"])),
              converged_pct=[k.converged_percentage for k in node.keyframes])
-    log(f"  {n_frames} frames, {n_kf} keyframes, {n_refs - 1} switches "
+    log(f"  {n_frames} frames, {n_kf} keyframes, {n_switches} switches "
         f"({'propagated' if propagate else 'flat'}), {wall:.1f} s; launches {launches} "
-        f"(want {want}); per frame median {r['frame_ms_median']:.3f} ms, p90 "
-        f"{r['frame_ms_p90']:.3f} ms; switch median {r['switch_ms_median']:.3f} ms; "
-        f"finalization on the worker thread median {r['finalize_ms_median']:.1f} ms "
-        f"(TV-L1, download, exports)")
+        f"(want {want}, sweep {n_updates}-{2 * n_updates}); per frame median "
+        f"{r['frame_ms_median']:.3f} ms, p90 {r['frame_ms_p90']:.3f} ms; switch median "
+        f"{r['switch_ms_median']:.3f} ms; finalization on the worker thread median "
+        f"{r['finalize_ms_median']:.1f} ms (TV-L1, download, exports)")
     if problems:
         raise AssertionError("; ".join(problems))
     return r
@@ -1054,6 +1067,206 @@ def cli_phase(torch, P, kernels, over_table):
     return out
 
 
+# -- concurrent-keyframe ring ---------------------------------------------------
+
+
+RING_SIZES = (1, 2, 4)
+RING_EXACT_B, RING_EXACT_FRAMES = 4, 40
+
+
+def gt_bounds(fr):
+    d = fr.depth[np.isfinite(fr.depth)]
+    return float(d.min()), float(d.max())
+
+
+def ring_exactness(torch, P, frames):
+    """A ``BatchedDepthmap`` of RING_EXACT_B slots against as many single
+    ``Depthmap``s fed alike over RING_EXACT_FRAMES frames: every slot is
+    seeded on frame 0 and slot i reseeded flat on frame 10 i. Each slot's
+    mu, sigma_sq, a and b must equal its engine's bit for bit, its conv map
+    too, and each frame's stats. Returns the max errors."""
+    h, w = frames[0].image.shape
+    cam = (CAM_640["fx"], CAM_640["cx"], CAM_640["fy"], CAM_640["cy"])
+    ring = P.BatchedDepthmap(RING_EXACT_B, w, h, *cam)
+    singles = [P.Depthmap(w, h, *cam) for _ in range(RING_EXACT_B)]
+    stats_err = 0.0
+    for j, fr in enumerate(frames[:RING_EXACT_FRAMES]):
+        T = Tcw(fr)
+        if j:
+            got = ring.update(fr.image, T)["packed"]
+            for i, eng in enumerate(singles):
+                stats_err = max(stats_err, max_err(got[i], eng.update(fr.image, T)["packed"]))
+        for i, eng in enumerate(singles):
+            if j == 10 * i or j == 0:
+                ring.seed_keyframe(i, fr.image, T, *gt_bounds(fr))
+                eng.set_reference_image(fr.image, T, *gt_bounds(fr))
+    errs = {name: max(max_err(getattr(ring.keyframe_state(i), name), getattr(eng.state, name))
+                      for i, eng in enumerate(singles))
+            for name in ("mu", "sigma_sq", "a", "b")}
+    conv_equal = all(torch.equal(ring.keyframe_state(i).conv, eng.state.conv)
+                     for i, eng in enumerate(singles))
+    log(f"  ring of {RING_EXACT_B} against {RING_EXACT_B} Depthmaps over {RING_EXACT_FRAMES} "
+        f"frames: max err " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; conv equal {conv_equal}; stats max err {stats_err:.3g}")
+    if max(errs.values()) != 0.0 or stats_err != 0.0 or not conv_equal:
+        raise AssertionError("a ring slot differs from a single Depthmap fed alike")
+    return dict(errs, stats=stats_err, conv_equal=conv_equal)
+
+
+def ring_node_run(torch, P, kernels, frames, B):
+    """``MultiKeyframeNode`` over ``frames`` with B slots (default stride
+    and stagger), each frame with its own GT bounds as the CLI gives them,
+    the launch counts zeroed just before and read just after (every kernel
+    must run): per-frame ms (CUDA events, the seeding frame left out),
+    switch ms, finalization ms on the worker (which must run on the loop's
+    stream), and each finalized keyframe's accuracy against the GT of the
+    frame it was keyed on."""
+    h, w = frames[0].image.shape
+    node = P.MultiKeyframeNode(P.BatchedDepthmap(
+        B, w, h, CAM_640["fx"], CAM_640["cx"], CAM_640["fy"], CAM_640["cy"]))
+    rec = {}
+    main_stream = torch.cuda.current_stream().cuda_stream
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with timed_node(torch, rec, ring=True):
+        for fr in frames:
+            node.process_frame(fr.image, Tcw(fr), *gt_bounds(fr))
+        node.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the ring at B={B}: {missing}")
+    if rec.get("streams") != {main_stream}:
+        raise AssertionError(f"ring finalization ran on streams {rec.get('streams')}")
+    poses = np.stack([fr.T_world_curr for fr in frames]).reshape(len(frames), -1)
+    accs = []
+    for kf in node.keyframes:
+        d = np.abs(poses - kf.state.T_world_ref.cpu().numpy().reshape(1, -1)).max(1)
+        i = int(np.argmin(d))
+        if d[i] > 1e-3:
+            raise AssertionError("a finalized keyframe matches no frame's pose")
+        lo, hi = gt_bounds(frames[i])
+        accs.append(accuracy(kf.state.conv.cpu().numpy(), kf.state.mu.cpu().numpy(), None,
+                             frames[i].depth, hi - lo, P))
+    ms = np.array([s.elapsed_time(e) for s, e in rec["frame"][1:]])
+    switch = np.array([s.elapsed_time(e) for s, e in rec["reseed"][B:]])
+
+    def mean_of(key):
+        vals = [a[key] for a in accs if np.isfinite(a[key])]
+        return float(np.mean(vals)) if vals else float("nan")
+
+    r = dict(B=B, frames=len(frames), keyframes=len(node.keyframes), wall_s=wall,
+             launches=launches, frame_ms_median=float(np.median(ms)),
+             frame_ms_p90=float(np.percentile(ms, 90)),
+             switch_ms_median=float(np.median(switch)) if switch.size else float("nan"),
+             switches=int(switch.size),
+             finalize_ms_median=1e3 * float(np.median(rec["finalize_s"])),
+             converged_pct=mean_of("converged_pct"), within=100 * mean_of("within_raw"))
+    log(f"  ring B={B}: {r['frames']} frames, {r['keyframes']} keyframes finalized, "
+        f"{r['switches']} reseeds, {wall:.1f} s; per frame median {r['frame_ms_median']:.3f} ms, "
+        f"p90 {r['frame_ms_p90']:.3f} ms; switch median {r['switch_ms_median']:.3f} ms; "
+        f"finalization on the loop's stream, median {r['finalize_ms_median']:.2f} ms; per "
+        f"finalized keyframe converged {r['converged_pct']:.4f} %, within 2.6 % "
+        f"{r['within']:.4f} %; launches {launches}")
+    if not node.keyframes:
+        raise AssertionError(f"the ring finalized no keyframe at B={B}")
+    return r
+
+
+def walk_oracle(torch, P, run640):
+    """The epipolar-walk oracle on frame KEEP_FRAME of the 640x480 run
+    (its kept state, image and pose) beside the rectified matcher: where
+    both are confident (NCC > 0.9, 10 px inside the image) their matches
+    must lie within a median 1.5 px (tests/test_matching.py); and the
+    walk's time (CUDA events)."""
+    from rpg_open_remode_tpu_torch.ops import epipolar
+    from rpg_open_remode_tpu_torch.utils import se3
+
+    kept, eng = run640["kept"], run640["eng"]
+    state, cfg = kept["state"], eng.cfg
+    img = eng.input_image(kept["img"])
+    T_curr_ref = se3.compose(torch.tensor(kept["T"], device=img.device), state.T_world_ref)
+    rect = epipolar.match(state, img, T_curr_ref, eng.cam, cfg)
+
+    def walk():
+        return epipolar.match_epipolar_walk(state, img, T_curr_ref, eng.cam, cfg)
+
+    wk = walk()
+    both = rect.found & wk.found & (rect.best_ncc > 0.9) & (wk.best_ncc > 0.9)
+    inside = torch.zeros_like(both)
+    inside[10:-10, 10:-10] = True
+    both = both & inside
+    err = torch.hypot(rect.u - wk.u, rect.v - wk.v)[both]
+    r = dict(steps=cfg.max_walk_steps, found_pct=100 * float(wk.found.float().mean()),
+             both=int(both.sum()), median_px=float(err.median()) if err.numel() else float("nan"),
+             p90_px=float(torch.quantile(err, 0.9)) if err.numel() else float("nan"),
+             ms=cuda_ms(torch, walk, 3, 1))
+    h, w = img.shape
+    log(f"  walk oracle, frame {KEEP_FRAME} at {w}x{h} ({r['steps']} steps of "
+        f"[{h}, {w}, {cfg.patch_area}] gathers): found {r['found_pct']:.2f} %; against the "
+        f"rectified matcher on {r['both']} pixels both confident: median {r['median_px']:.4f} "
+        f"px, p90 {r['p90_px']:.4f} px; {r['ms']:.2f} ms")
+    if r["both"] < 1000 or not r["median_px"] < 1.5:
+        raise AssertionError(f"walk and rectified matcher disagree: {r}")
+    return r
+
+
+def ring_phase(torch, P, kernels, frames640, run640):
+    """The ring: bit-exactness, the node at each RING_SIZES over all
+    frames, the CLI's ``--keyframes 4 --propagate`` run, the walk oracle."""
+    out = dict(exact=ring_exactness(torch, P, frames640))
+    out["node"] = {B: ring_node_run(torch, P, kernels, frames640, B) for B in RING_SIZES}
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        log("  run --synthetic --frames 200 --keyframes 4 --propagate --map-voxel 0.01")
+        argv = ["--device", "cuda", "run", "--synthetic", "--frames", "200", "--keyframes", "4",
+                "--propagate", "--map-voxel", "0.01", "--out", str(Path(tmp) / "ring")]
+        out["cli"] = cli_run(torch, P, kernels, argv, Path(tmp) / "ring", True, keyframes=4)
+    out["walk"] = walk_oracle(torch, P, run640)
+    return out
+
+
+def grid_sample_call(torch, kind, img, coord):
+    """One ``torch.nn.functional.grid_sample`` call (bilinear, border
+    padding, align_corners) that computes ``resample_<kind>(img, coord)``:
+    the resampled coordinate normalized, the other pinned to its integer
+    index. Returns (the call, max |call - plain version| over the image's
+    largest magnitude). The grid is built outside the call."""
+    from rpg_open_remode_tpu_torch.ops import resample_cuda
+
+    c, hs, ws = img.shape
+    ho, wo = coord.shape
+    dev = img.device
+    if kind == "rows":
+        gx = (2.0 * torch.arange(wo, device=dev, dtype=torch.float32) / (ws - 1) - 1.0).expand(ho, wo)
+        gy = 2.0 * coord / (hs - 1) - 1.0
+    else:
+        gx = 2.0 * coord / (ws - 1) - 1.0
+        gy = (2.0 * torch.arange(ho, device=dev, dtype=torch.float32) / (hs - 1) - 1.0)[:, None]
+        gy = gy.expand(ho, wo)
+    grid = torch.stack([gx, gy], -1)[None].contiguous()
+    src = img[None].contiguous()
+
+    def call():
+        return torch.nn.functional.grid_sample(src, grid, mode="bilinear", padding_mode="border",
+                                               align_corners=True)[0]
+
+    plain = getattr(resample_cuda, f"resample_{kind}_plain")(img, coord)
+    scale = max(float(img.abs().max()), 1e-30)
+    return call, float((call() - plain).abs().max()) / scale
+
+
+# grid_sample's normalized coordinate rounds the pinned index and the
+# resampled coordinate by ~1e-7 of the axis length (<= ~1e-4 px here), so
+# it may differ from the plain version by that fraction of a step between
+# neighbours: held at 1e-3 of the image's largest magnitude
+GRID_SAMPLE_TOL = 1e-3
+
+
 # -- kernel timings ------------------------------------------------------------
 
 
@@ -1082,7 +1295,8 @@ def kernel_timings(torch, dev, P, run640, run720, calls):
     for kind in ("rows", "cols"):
         fn = getattr(resample_cuda, f"resample_{kind}")
         plain = getattr(resample_cuda, f"resample_{kind}_plain")
-        t = dict(ms=0.0, ms_random=0.0, plain_ms=0.0, bytes=0.0, flops=0.0, per_call={})
+        t = dict(ms=0.0, ms_random=0.0, plain_ms=0.0, library_ms=0.0, library_err=0.0,
+                 bytes=0.0, flops=0.0, per_call={})
         for lab in WARP_LABELS.values():
             img, coord = calls[(kind, lab)]
             n = img.shape[-2] if kind == "rows" else img.shape[-1]
@@ -1090,15 +1304,23 @@ def kernel_timings(torch, dev, P, run640, run720, calls):
                                 device=dev)
             ms = graph_ms(torch, lambda: fn(img, coord))
             ms_r = graph_ms(torch, lambda: fn(img, rand))
+            lib, lib_err = grid_sample_call(torch, kind, img, coord)
+            lib_ms = graph_ms(torch, lib)
             nb, nf = resample_bytes(kind, img, coord)
-            t["per_call"][lab] = dict(ms=ms, ms_random=ms_r, bound_ms=bound(nb, nf)[0])
+            t["per_call"][lab] = dict(ms=ms, ms_random=ms_r, library_ms=lib_ms,
+                                      bound_ms=bound(nb, nf)[0])
             t["ms"] += ms
             t["ms_random"] += ms_r
+            t["library_ms"] += lib_ms
+            t["library_err"] = max(t["library_err"], lib_err)
             t["plain_ms"] += cuda_ms(torch, lambda: plain(img, coord), 20)
             t["bytes"] += nb
             t["flops"] += nf
+        if t["library_err"] > GRID_SAMPLE_TOL:
+            raise AssertionError(f"grid_sample is no resample_{kind}: {t['library_err']:.3g}")
         rows[f"resample_{kind}"] = dict(
             ms=t["ms"], ms_random=t["ms_random"], plain_ms=t["plain_ms"],
+            library_ms=t["library_ms"], library_err=t["library_err"],
             bound=bound(t["bytes"], t["flops"]), per_call=t["per_call"],
             work=f"the 3 calls of frame {KEEP_FRAME} (ref stack, curr, back-warp)")
 
@@ -1127,7 +1349,9 @@ def kernel_timings(torch, dev, P, run640, run720, calls):
                      f"one-thread-per-pixel loop by the schedule model (not measured) "
                      f"{share(lu['pixel_loop_model']):.3f}")
         if "ms_random" in r:
-            extra = f", random coordinates {r['ms_random']:.4f} ms"
+            extra = (f", random coordinates {r['ms_random']:.4f} ms; grid_sample "
+                     f"{r['library_ms']:.4f} ms (max err {r['library_err']:.3g} of the "
+                     f"image's largest magnitude)")
         log(f"  {k}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound'][0]:.4f} ms by {r['bound'][1]}){extra}; {r['work']}")
     return rows
@@ -1308,6 +1532,10 @@ def main() -> int:
     phase("the CLI on the card (cli.main in-process)")
     cli_out = cli_phase(torch, P, kernels, frames640)
 
+    phase("concurrent-keyframe ring (bit-exactness, the node at B = 1, 2, 4, the CLI's "
+          "--keyframes 4 run, the walk oracle)")
+    ring = ring_phase(torch, P, kernels, frames640, run640)
+
     phase(f"kernel timings (frame {KEEP_FRAME} of the 640x480 run; TV-L1 also at 1280x720)")
     rows = kernel_timings(torch, dev, P, run640, run720, calls)
 
@@ -1322,7 +1550,8 @@ def main() -> int:
         r = rows["sweep full" if k == "sweep" else k]
         entry = dict(name=k, route="cuda", **KERNELS[k], launches=run640["launches"][k],
                      max_abs_err=errs[k], ms=r["ms"], plain_ms=r["plain_ms"],
-                     bound_ms=r["bound"][0], bound_by=r["bound"][1], library_ms=None,
+                     bound_ms=r["bound"][0], bound_by=r["bound"][1],
+                     library_ms=r.get("library_ms"),
                      run_ms=prof["kernels"][k]["ms"], run_launches=prof["kernels"][k]["launches"])
         if k == "sweep":
             c = rows["sweep coarse"]
@@ -1333,15 +1562,17 @@ def main() -> int:
             pr = prop[k]
             entry.update(ms_random_coords=r["ms_random"], launches_per_switch=pr["calls"],
                          ms_switch=pr["ms"], plain_ms_switch=pr["plain_ms"],
-                         bound_ms_switch=pr["bound"][0],
+                         bound_ms_switch=pr["bound"][0], library_ms_switch=pr["library_ms"],
                          run_ms_reseeds=prop_run["kernels"][k]["reseeds"]["ms"])
         if k == "tvl1":
             t7 = rows["tvl1 1280x720"]
             entry.update(ms_1280x720=t7["ms"], plain_ms_1280x720=t7["plain_ms"],
                          bound_ms_1280x720=t7["bound"][0])
         entry["launches_lifecycle"] = cli_out["synthetic"]["launches"][k]
+        entry["launches_ring"] = ring["cli"]["launches"][k]
         out.append(entry)
-    log("  no single PyTorch call computes any of these kernels' functions (library_ms null)")
+    log("  library_ms: one grid_sample call per resample pass; no single PyTorch call computes "
+        "the sweep or TV-L1 (null)")
     log(f"== total {time.perf_counter() - t_start:.1f} s")
     if opts.out:
         keep = ("frames", "launches", "wall_ms", "frame_ms_median", "frame_ms_p90",
@@ -1355,7 +1586,7 @@ def main() -> int:
                 card=smi, build_s=kernels.build_seconds, kernels=out,
                 run640={k: run640[k] for k in keep}, run720={k: run720[k] for k in keep},
                 timings=rows, work=work, profile=prof, lifecycle=life, propagation=prop,
-                profile_lifecycle=prop_run, cli=cli_out, baseline=base)), f, indent=1)
+                profile_lifecycle=prop_run, cli=cli_out, ring=ring, baseline=base)), f, indent=1)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

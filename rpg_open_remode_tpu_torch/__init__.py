@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of rpg_open_remode_tpu: probabilistic monocular dense
 reconstruction on an NVIDIA H100.
 
-The single-keyframe engine: per-pixel recursive Bayesian depth seeds over a
+The engine: per-pixel recursive Bayesian depth seeds over a
 reference keyframe, updated per frame by a rectified NCC disparity sweep,
 then a weighted TV-L1 denoise. Plain tensor code is PyTorch; the sweep, the
 two scanline resampling passes and the TV-L1 iteration are CUDA kernels
@@ -26,8 +26,13 @@ from rpg_open_remode_tpu_torch.models.state import (  # noqa: E402
     SeedState,
     state_from_numpy,
     state_to_numpy,
+    states_from_numpy,
 )
 from rpg_open_remode_tpu_torch.models.depthmap import Depthmap  # noqa: E402
+from rpg_open_remode_tpu_torch.models.multikeyframe import (  # noqa: E402
+    BatchedDepthmap,
+    MultiKeyframeNode,
+)
 
 __version__ = "0.1.0"
 
@@ -37,7 +42,10 @@ __all__ = [
     "SeedState",
     "SceneParams",
     "Depthmap",
+    "BatchedDepthmap",
+    "MultiKeyframeNode",
     "state_from_numpy",
     "state_to_numpy",
+    "states_from_numpy",
     "__version__",
 ]

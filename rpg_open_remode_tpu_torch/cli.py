@@ -3,7 +3,9 @@
 
   run    the keyframe lifecycle over a dataset, the synthetic scene or a
          stdin stream (the reference's ``depthmap_node`` + dataset replay):
-         drives ``models/node.DepthmapNode`` and writes per keyframe
+         drives ``models/node.DepthmapNode``, or with ``--keyframes N > 1``
+         the concurrent-keyframe ring ``models/multikeyframe.MultiKeyframeNode``,
+         and writes per keyframe
          ``kf_NNN_depth.npy``, ``kf_NNN_cloud.ply``,
          ``kf_NNN_convergence.png`` and, with ``--checkpoint``,
          ``kf_NNN_state.npz``, plus the fused ``global_map.ply``.
@@ -12,11 +14,12 @@
 
     python -m rpg_open_remode_tpu_torch.cli run --synthetic --propagate
     python -m rpg_open_remode_tpu_torch.cli run --synthetic --device cpu
+    python -m rpg_open_remode_tpu_torch.cli run --synthetic --keyframes 4
 
 ``--device`` defaults to ``cuda`` and fails without a GPU; ``cpu`` runs the
-kernels' plain PyTorch versions. The multi-keyframe ring and the mesh
-(``--keyframes N > 1``, ``--mesh``, ``--distributed``, ``--host-devices``)
-are not ported yet and exit with an error.
+kernels' plain PyTorch versions. The device mesh (``--mesh``,
+``--distributed``, ``--host-devices``) is not ported yet and exits with an
+error.
 """
 
 from __future__ import annotations
@@ -31,9 +34,8 @@ import time
 import numpy as np
 
 UNPORTED = (
-    "not ported yet: the concurrent-keyframe ring (--keyframes N > 1) is "
-    "ROADMAP.md Queue 1 item 15, the device mesh (--mesh, --distributed, "
-    "--host-devices) item 17"
+    "not ported yet: the device mesh (--mesh, --distributed, --host-devices) "
+    "is ROADMAP.md Queue 1 item 17"
 )
 
 
@@ -131,14 +133,49 @@ def _make_engine(geom, args):
     return Depthmap(width, height, fx=fx, cx=cx, fy=fy, cy=cy, cfg=cfg, device=args.device)
 
 
+def _make_node(geom, args, export):
+    """The lifecycle node of the run: the ring with ``--keyframes N > 1``,
+    else ``DepthmapNode`` with its convergence overlays and metrics."""
+    from rpg_open_remode_tpu_torch.io.png import write_png
+    from rpg_open_remode_tpu_torch.models.node import DepthmapNode
+
+    if args.keyframes > 1:
+        from rpg_open_remode_tpu_torch.config import RemodeConfig
+        from rpg_open_remode_tpu_torch.models.multikeyframe import (
+            BatchedDepthmap, MultiKeyframeNode,
+        )
+
+        if args.metrics:
+            print("note: --metrics NDJSON is single-keyframe only; ignored", flush=True)
+        if args.conv_every:
+            print("note: --conv-every is single-keyframe only; ignored", flush=True)
+        width, height, fx, cx, fy, cy = geom
+        # ring slots warm-start from their own outgoing posterior
+        cfg = RemodeConfig.for_camera(fx, propagate_depth=True) if args.propagate else None
+        engine = BatchedDepthmap(args.keyframes, width, height, fx=fx, cx=cx, fy=fy, cy=cy,
+                                 cfg=cfg, device=args.device)
+        return MultiKeyframeNode(engine, on_keyframe=export)
+
+    engine = _make_engine(geom, args)
+    node_cfg = on_conv = None
+    if args.conv_every:
+        node_cfg = dataclasses.replace(engine.cfg, publish_conv_every_n=args.conv_every)
+
+        def on_conv(overlay):
+            write_png(os.path.join(args.out, "conv_latest.png"), overlay)
+
+    return DepthmapNode(engine, cfg=node_cfg, on_keyframe=export, on_convergence=on_conv,
+                        metrics_path=args.metrics or None)
+
+
 def cmd_run(args):
-    """The lifecycle run; returns the closed ``DepthmapNode``."""
+    """The lifecycle run; returns the closed node (``DepthmapNode``, or
+    ``MultiKeyframeNode`` with ``--keyframes N > 1``)."""
     from rpg_open_remode_tpu_torch import native
     from rpg_open_remode_tpu_torch.io import (
         GlobalMap, backproject_converged, convergence_overlay, save_state,
     )
     from rpg_open_remode_tpu_torch.io.png import write_png
-    from rpg_open_remode_tpu_torch.models.node import DepthmapNode
 
     frames, geom = _load_frames(args)
     os.makedirs(args.out, exist_ok=True)
@@ -161,16 +198,7 @@ def cmd_run(args):
         print(f"[keyframe {i}] {result.converged_percentage:.1f}% converged, "
               f"{result.n_updates} updates, {xyz.shape[0]} points", flush=True)
 
-    engine = _make_engine(geom, args)
-    node_cfg = on_conv = None
-    if args.conv_every:
-        node_cfg = dataclasses.replace(engine.cfg, publish_conv_every_n=args.conv_every)
-
-        def on_conv(overlay):
-            write_png(os.path.join(args.out, "conv_latest.png"), overlay)
-
-    node = DepthmapNode(engine, cfg=node_cfg, on_keyframe=export, on_convergence=on_conv,
-                        metrics_path=args.metrics or None)
+    node = _make_node(geom, args, export)
     last_bounds = None
     n_frames = 0
     t0 = time.perf_counter()
@@ -194,6 +222,9 @@ def cmd_run(args):
             n_frames += 1
             if args.verbose and "converged_percentage" in stats:
                 print(f"{name}: {stats['converged_percentage']:.1f}% converged", flush=True)
+            elif args.verbose and "slots" in stats:
+                pcts = "/".join(f"{sl['converged_percentage']:.1f}" for sl in stats["slots"])
+                print(f"{name}: {pcts}% converged per slot", flush=True)
     finally:
         node.close()
     if gmap is not None and gmap.n_keyframes:
@@ -310,7 +341,8 @@ def main(argv=None):
                        help="synthetic camera travel per frame in metres")
         s.add_argument("--out", default="remode_out")
         s.add_argument("--keyframes", type=int, default=1,
-                       help="concurrent reference keyframes; only 1 is ported")
+                       help="concurrent reference keyframes (> 1 drives the keyframe "
+                            "ring; run only)")
         s.add_argument("--mesh", default=None, metavar="KF,TY,TX", help="not ported")
         s.add_argument("--distributed", default=None, metavar="COORD:PORT",
                        help="not ported")
@@ -332,7 +364,7 @@ def main(argv=None):
         s.add_argument("--rate-hz", type=float, default=None,
                        help="pace the replay at this frame rate")
     args = p.parse_args(argv)
-    if args.keyframes > 1 or args.mesh or args.distributed or args.host_devices:
+    if args.mesh or args.distributed or args.host_devices:
         sys.exit(f"remode-torch: {UNPORTED}")
 
     from rpg_open_remode_tpu_torch.models.depthmap import resolve_device

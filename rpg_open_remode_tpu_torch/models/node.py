@@ -75,7 +75,80 @@ def _fetch(packed: torch.Tensor):
     return host, event
 
 
-class DepthmapNode:
+class LifecycleNode:
+    """What the lifecycle nodes share: finalization on one worker thread,
+    the finalized ``keyframes`` and the teardown. A subclass sets
+    ``engine``, ``cfg`` and ``on_keyframe``, queues its stats packets in
+    ``_pending_stats`` and resolves them in ``_resolve_oldest``."""
+
+    def __init__(self):
+        self._pending_stats: collections.deque = collections.deque()
+        self._executor = ThreadPoolExecutor(max_workers=1)
+        self._pending: list[Future] = []
+        self.keyframes: list[KeyframeResult] = []
+
+    # -- worker thread -------------------------------------------------------
+
+    def _submit(self, fn, *args) -> None:
+        """Run ``fn(*args)`` on the worker thread, on the stream current
+        here (the loop's), so that it sees every frame launched so far."""
+        self._prune_pending()
+        dev = self.engine.device
+        stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+
+        def task():
+            with contextlib.nullcontext() if stream is None else torch.cuda.stream(stream):
+                fn(*args)
+
+        self._pending.append(self._executor.submit(task))
+
+    def _prune_pending(self) -> None:
+        """Drop completed worker futures, re-raising their exceptions now
+        rather than at close()."""
+        still = []
+        for f in self._pending:
+            if f.done():
+                f.result()   # raises if the worker task failed
+            else:
+                still.append(f)
+        self._pending = still
+
+    # -- keyframe completion (denoiseAndPublishResults, :165-182) ------------
+
+    def _complete_keyframe(self, snapshot: SeedState, conv_pct: float, n_updates: int) -> None:
+        denoised = denoise_depthmap(
+            snapshot, self.engine.cfg, lam=self.cfg.denoise_lambda,
+            iterations=self.cfg.denoise_iters,
+        ).cpu().numpy()
+        result = KeyframeResult(state=snapshot, denoised_depth=denoised,
+                                converged_percentage=conv_pct, n_updates=n_updates)
+        self.keyframes.append(result)
+        if self.on_keyframe is not None:
+            self.on_keyframe(result)
+
+    def drain(self) -> dict | None:
+        """Resolve every in-flight stats packet (possibly finalizing
+        keyframes); returns the last resolved metrics."""
+        out = None
+        while self._pending_stats:
+            out = self._resolve_oldest()
+        return out
+
+    def flush(self) -> None:
+        """Wait for all worker tasks, re-raising their exceptions."""
+        self.drain()
+        for f in self._pending:
+            f.result()
+        self._pending = []
+
+    def close(self) -> None:
+        try:
+            self.flush()
+        finally:
+            self._executor.shutdown(wait=True)
+
+
+class DepthmapNode(LifecycleNode):
     """Drives a ``Depthmap`` engine through the keyframe lifecycle.
 
     ``on_keyframe(result: KeyframeResult)`` is invoked on the worker thread
@@ -94,6 +167,7 @@ class DepthmapNode:
         metrics_path: str | None = None,
         policy_stride: int = 6,
     ):
+        super().__init__()
         self.engine = engine
         self.cfg = cfg or engine.cfg
         self.state = NodeState.TAKE_REFERENCE_FRAME
@@ -103,11 +177,7 @@ class DepthmapNode:
         self.num_msgs = 0
         self._n_updates = 0
         self._generation = 0          # bumps on every keyframe switch
-        # (frame_no, generation, host tensor, event)
-        self._pending_stats: collections.deque = collections.deque()
-        self._executor = ThreadPoolExecutor(max_workers=1)
-        self._pending: list[Future] = []
-        self.keyframes: list[KeyframeResult] = []
+        # _pending_stats: (frame_no, generation, host tensor, event)
         self.metrics = MetricsLog(metrics_path)
 
     # -- frame ingestion (denseInputCallback, depthmap_node.cpp:96-162) ----
@@ -172,69 +242,16 @@ class DepthmapNode:
         self.metrics.log(frame_no, stats)
         return stats
 
-    # -- worker thread -------------------------------------------------------
-
-    def _submit(self, fn, *args) -> None:
-        """Run ``fn(*args)`` on the worker thread, on the stream current
-        here (the loop's), so that it sees every frame launched so far."""
-        self._prune_pending()
-        dev = self.engine.device
-        stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
-
-        def task():
-            with contextlib.nullcontext() if stream is None else torch.cuda.stream(stream):
-                fn(*args)
-
-        self._pending.append(self._executor.submit(task))
-
     def _publish_convergence(self, snapshot: SeedState) -> None:
         self.on_convergence(convergence_overlay(snapshot))
-
-    def _prune_pending(self) -> None:
-        """Drop completed worker futures, re-raising their exceptions now
-        rather than at close()."""
-        still = []
-        for f in self._pending:
-            if f.done():
-                f.result()   # raises if the worker task failed
-            else:
-                still.append(f)
-        self._pending = still
 
     # -- keyframe completion (denoiseAndPublishResults, :165-182) ------------
 
     def _finalize_keyframe(self, conv_pct: float) -> None:
         self._submit(self._complete_keyframe, self.engine.state, conv_pct, self._n_updates)
 
-    def _complete_keyframe(self, snapshot: SeedState, conv_pct: float, n_updates: int) -> None:
-        denoised = denoise_depthmap(
-            snapshot, self.engine.cfg, lam=self.cfg.denoise_lambda,
-            iterations=self.cfg.denoise_iters,
-        ).cpu().numpy()
-        result = KeyframeResult(state=snapshot, denoised_depth=denoised,
-                                converged_percentage=conv_pct, n_updates=n_updates)
-        self.keyframes.append(result)
-        if self.on_keyframe is not None:
-            self.on_keyframe(result)
-
-    def drain(self) -> dict | None:
-        """Resolve every in-flight stats packet (possibly finalizing a
-        keyframe); returns the last resolved metrics."""
-        out = None
-        while self._pending_stats:
-            out = self._resolve_oldest()
-        return out
-
-    def flush(self) -> None:
-        """Wait for all worker tasks, re-raising their exceptions."""
-        self.drain()
-        for f in self._pending:
-            f.result()
-        self._pending = []
-
     def close(self) -> None:
         try:
-            self.flush()
+            super().close()
         finally:
-            self._executor.shutdown(wait=True)
             self.metrics.close()

@@ -5,7 +5,8 @@ The reference keeps this state as mutable pitched device buffers owned by
 ``SeedMatrix`` (include/rmd/seed_matrix.cuh:87-108). Here one frozen
 ``SeedState`` is replaced per frame; every image-shaped field is ``[H, W]``.
 ``state_from_numpy``/``state_to_numpy`` carry a state across from and to the
-JAX package as numpy arrays.
+JAX package as numpy arrays, ``states_from_numpy`` a JAX keyframe ring's
+batched state.
 """
 
 from __future__ import annotations
@@ -116,6 +117,34 @@ def state_from_numpy(arrays: dict, device=None) -> SeedState:
         x = t(arrays[f.name])
         leaves[f.name] = x.int() if f.name == "conv" else x.float()
     return SeedState(scene=scene, **leaves)
+
+
+def states_from_numpy(arrays: dict, device=None) -> list[SeedState]:
+    """The slots of a JAX keyframe ring: ``arrays`` as ``state_from_numpy``
+    takes them, every leaf with a leading ``[B]`` axis (a JAX
+    ``BatchedDepthmap.states``). Returns ``B`` states."""
+    n = len(arrays["mu"])
+    return [
+        state_from_numpy(
+            {k: (v[b] if k != "scene" else {s: x[b] for s, x in v.items()})
+             for k, v in arrays.items()},
+            device=device,
+        )
+        for b in range(n)
+    ]
+
+
+def stack_states(states: list[SeedState]) -> SeedState:
+    """One ``SeedState`` whose every leaf stacks the slots' along a leading
+    ``[B]`` axis (a copy, for inspection)."""
+    def stack(get):
+        return torch.stack([get(s) for s in states])
+
+    scene = SceneParams(**{f.name: stack(lambda s, n=f.name: getattr(s.scene, n))
+                           for f in dataclasses.fields(SceneParams)})
+    return SeedState(scene=scene, **{
+        f.name: stack(lambda s, n=f.name: getattr(s, n))
+        for f in dataclasses.fields(SeedState) if f.name != "scene"})
 
 
 def state_to_numpy(state: SeedState) -> dict:

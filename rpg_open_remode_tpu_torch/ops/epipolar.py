@@ -1,16 +1,18 @@
-"""Epipolar NCC matching: the dispatch, the match result and the
-inverse-depth plane sweep (counterpart of ``rpg_open_remode_tpu/ops/epipolar.py``).
+"""Epipolar NCC matching: the dispatch, the match result, the
+inverse-depth plane sweep and the reference-semantics walk (counterpart of
+``rpg_open_remode_tpu/ops/epipolar.py``).
 
 ``match`` serves ``match_mode`` "rect" (the rectified sweep with its
-fallbacks, ``ops/rect_match.match``) and "sweep" (``match_planesweep``).
-The reference-semantics walk oracle ("walk") is not ported yet (ROADMAP
-queue 1, item 13).
+fallbacks, ``ops/rect_match.match``), "sweep" (``match_planesweep``) and
+"walk" (``match_epipolar_walk``, the oracle the fast matchers are held
+against).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from rpg_open_remode_tpu_torch.config import ConvergenceState, RemodeConfig
@@ -161,13 +163,81 @@ def match_planesweep(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
     )
 
 
+def _patch_offsets(cfg: RemodeConfig, device):
+    d = torch.arange(cfg.patch_side, dtype=torch.float32, device=device) + cfg.patch_offset
+    dy, dx = torch.meshgrid(d, d, indexing="ij")
+    return dx.reshape(-1), dy.reshape(-1)  # [P]
+
+
+def match_epipolar_walk(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
+                        cfg: RemodeConfig) -> MatchResult:
+    """The reference's per-pixel walk along the epipolar segment
+    (seedEpipolarMatchKernel, epipolar_match.cu:37-140) as a fixed trip of
+    ``cfg.max_walk_steps`` masked steps of ``epi_step_px``: each step
+    gathers every pixel's ``patch_side``-square patch of the current image
+    bilinearly ([H, W, P] taps) and keeps a strict ``>`` running best. Plain
+    PyTorch on any device; gather-bound, an oracle for tests and checks."""
+    height, width = curr_img.shape
+    dev = curr_img.device
+    area = float(cfg.patch_area)
+
+    R = se3.rotation(T_curr_ref)
+    t = se3.translation(T_curr_ref)
+    Rf = torch.einsum("ij,jhw->ihw", R, state.f_ref)
+
+    # per-pixel search band (epipolar_match.cu:63-71)
+    sigma = torch.sqrt(state.sigma_sq)
+    d_lo = torch.clamp(state.mu - cfg.sigma_band * sigma, min=cfg.min_search_depth)
+    d_hi = state.mu + cfg.sigma_band * sigma
+    u_mean, v_mean, _ = _project_depth(Rf, t, state.mu, cam)
+    u_min, v_min, _ = _project_depth(Rf, t, d_lo, cam)
+    u_max, v_max, _ = _project_depth(Rf, t, d_hi, cam)
+
+    eu = u_max - u_min
+    ev = v_max - v_min
+    norm_e = torch.sqrt(eu * eu + ev * ev)
+    dir_u = eu / norm_e
+    dir_v = ev / norm_e
+    half_length = 0.5 * torch.clamp(norm_e, max=cfg.max_epipolar_extent)
+
+    # every pixel's template patch, gathered once: [H, W, P] (integer
+    # offsets, so exact clamped reads)
+    dx, dy = _patch_offsets(cfg, dev)
+    yy, xx = torch.meshgrid(torch.arange(height, dtype=torch.float32, device=dev),
+                            torch.arange(width, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    ref_patch = bilinear(state.ref_img, xx[..., None] + dx, yy[..., None] + dy)
+    m = float(cfg.patch_side)
+    step = np.float32(cfg.epi_step_px)
+
+    best = torch.full((height, width), -1.0, dtype=torch.float32, device=dev)
+    bu = torch.zeros((height, width), dtype=torch.float32, device=dev)
+    bv = torch.zeros((height, width), dtype=torch.float32, device=dev)
+    neg = torch.full_like(best, _NEG)
+    for k in range(cfg.max_walk_steps):
+        ell = -half_length + float(step * np.float32(k))  # the step in float32
+        u_c = u_mean + ell * dir_u
+        v_c = v_mean + ell * dir_v
+        in_seg = ell <= half_length
+        in_img = (u_c >= m) & (u_c < width - m) & (v_c >= m) & (v_c < height - m)
+        img_patch = bilinear(curr_img, u_c[..., None] + dx, v_c[..., None] + dy)
+        s_i = torch.sum(img_patch, dim=-1)
+        s_ii = torch.sum(img_patch * img_patch, dim=-1)
+        s_it = torch.sum(img_patch * ref_patch, dim=-1)
+        num = area * s_it - s_i * state.sum_templ
+        den = (area * s_ii - s_i * s_i) * state.const_templ_denom
+        ncc = torch.where(in_seg & in_img, num * torch.rsqrt(den + _FLT_MIN), neg)
+        improved = ncc > best
+        best = torch.where(improved, ncc, best)
+        bu = torch.where(improved, u_c, bu)
+        bv = torch.where(improved, v_c, bv)
+    return MatchResult(found=best >= cfg.ncc_threshold, u=bu, v=bv, best_ncc=best)
+
+
 def match(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
           cfg: RemodeConfig) -> MatchResult:
     if cfg.match_mode == "walk":
-        raise NotImplementedError(
-            "match_mode='walk' (the epipolar-walk oracle) is not ported yet: "
-            "ROADMAP queue 1, item 13"
-        )
+        return match_epipolar_walk(state, curr_img, T_curr_ref, cam, cfg)
     if cfg.match_mode == "sweep":
         return match_planesweep(state, curr_img, T_curr_ref, cam, cfg)
     from rpg_open_remode_tpu_torch.ops import rect_match

@@ -136,12 +136,11 @@ def _footprint_xlim(H_img_to_rect, height, width, rect_h, reach=3.5, vrows=5):
     return torch.stack([xmin_e, xmax_e], dim=1)
 
 
-def _coarse_narrow(curr_pad, ref_img_r, valid_r, xlim, disp_lo, disp_hi,
-                   cfg: RemodeConfig):
-    """Coarse-to-fine: localize each pixel's NCC peak on an x-decimated
-    half-resolution grid, then shrink its band to +-coarse_refine_radius
-    planes around the peak. Pixels the coarse pass cannot place keep their
-    full band."""
+def coarse_sweep_args(curr_pad, ref_img_r, valid_r, xlim, disp_lo, disp_hi,
+                      cfg: RemodeConfig) -> tuple:
+    """The coarse pass's ``disparity_sweep`` arguments: the x-decimated
+    half-resolution grid of the full pass's inputs, each half pixel's band
+    the union of its two full pixels' bands."""
     pad_h = cfg.disp_pad // 2
     planes_h = min(pad_h - 1, cfg.num_planes // 2 + 1)
     # x-only 2:1 box decimation: half-disparity k_h is full disparity 2 k_h
@@ -153,13 +152,18 @@ def _coarse_narrow(curr_pad, ref_img_r, valid_r, xlim, disp_lo, disp_hi,
     xlim_h = torch.stack(
         [xlim[:, 0] * 0.5 + hp_margin, xlim[:, 1] * 0.5 - hp_margin], dim=1
     ).contiguous()
-    # per-half-pixel band = union of the two covered full pixels' bands
     lo_h = (torch.minimum(disp_lo[:, ::2], disp_lo[:, 1::2]) * 0.5).contiguous()
     hi_h = (torch.maximum(disp_hi[:, ::2], disp_hi[:, 1::2]) * 0.5).contiguous()
-    d_c, _, found_c = disparity_sweep(
-        curr_h, xlim_h, ref_h, valid_h, lo_h, hi_h, cfg.ncc_threshold,
-        planes_h, pad_h, cfg.patch_side, False,
-    )
+    return (curr_h, xlim_h, ref_h, valid_h, lo_h, hi_h, cfg.ncc_threshold,
+            planes_h, pad_h, cfg.patch_side, False)
+
+
+def _coarse_narrow(coarse_args, disp_lo, disp_hi, cfg: RemodeConfig):
+    """Coarse-to-fine: localize each pixel's NCC peak on the half-resolution
+    grid (``coarse_sweep_args``), then shrink its band to
+    +-coarse_refine_radius planes around the peak. Pixels the coarse pass
+    cannot place keep their full band."""
+    d_c, _, found_c = disparity_sweep(*coarse_args)
     d_up = torch.repeat_interleave(2.0 * d_c, 2, dim=1)
     f_up = torch.repeat_interleave(found_c, 2, dim=1)
     r = cfg.coarse_refine_radius
@@ -241,7 +245,8 @@ def prepare_sweep(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
     """Everything ``match_rectified`` does before the full sweep:
     rectification warps, footprint interval, per-pixel disparity bands
     (Bayesian band intersected with the extent cap), disparity rebasing and
-    the coarse-to-fine narrowing. Returns the sweep inputs."""
+    the coarse-to-fine narrowing. Returns the sweep inputs, and under
+    ``coarse_args`` the coarse pass's arguments (None when it did not run)."""
     height, width = curr_img.shape
     dev = curr_img.device
     pad = cfg.disp_pad
@@ -323,21 +328,23 @@ def prepare_sweep(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
     )
     disp_lo, disp_hi = k_lo, k_hi
 
+    coarse_args = None
     if cfg.coarse_to_fine:
         # pay the coarse pass only while wide bands cover a meaningful
         # fraction of the image (young keyframes); one host read per frame
         extent = disp_hi - disp_lo
         wide_n = torch.isfinite(extent) & (extent > 2.0 * cfg.coarse_refine_radius + 2.0)
-        wide_needed = bool(wide_n.float().mean() > 0.15)
-        if wide_needed:
-            disp_lo, disp_hi = _coarse_narrow(
+        if bool(wide_n.float().mean() > 0.15):
+            coarse_args = coarse_sweep_args(
                 curr_img_r, ref_img_r, valid_r, xlim, disp_lo, disp_hi, cfg,
             )
+            disp_lo, disp_hi = _coarse_narrow(coarse_args, disp_lo, disp_hi, cfg)
 
     return dict(
         g=g, curr_img_r=curr_img_r.contiguous(), ref_img_r=ref_img_r.contiguous(),
         valid_r=valid_r.contiguous(), xlim=xlim.contiguous(),
         disp_lo=disp_lo.contiguous(), disp_hi=disp_hi.contiguous(), kbase=kbase,
+        coarse_args=coarse_args,
     )
 
 

@@ -3,7 +3,8 @@
 Sweep: the pathological band layouts of tests/test_matching.py, against both
 the JAX Pallas sweep (interpret mode) and its XLA sweep. Matcher: the port's
 ``epipolar.match`` against the JAX one in each motion regime (zero
-baseline -> pure rotation, axial -> plane sweep, lateral -> rectified).
+baseline -> pure rotation, axial -> plane sweep, lateral -> rectified). The
+epipolar-walk oracle against the JAX walk, and the fast matchers against it.
 """
 
 import jax.numpy as jnp
@@ -211,13 +212,50 @@ def test_match_regimes_match_jax(regime):
     assert np.percentile(err[both], 95) < 0.1, np.percentile(err[both], 95)
 
 
-def test_walk_mode_is_not_ported():
-    frames = synthetic.generate(n_frames=1, width=32, height=24,
-                                cam=dict(fx=24.0, fy=-24.0, cx=15.5, cy=11.5))
-    cam = pcamera.PinholeCamera.create(fx=24.0, fy=-24.0, cx=15.5, cy=11.5)
-    from rpg_open_remode_tpu_torch.models.state import empty_state
+def _frame_pair(frames, i):
+    T_ref = np.concatenate([frames[0].T_world_curr, [[0, 0, 0, 1]]])
+    T_cur = np.concatenate([frames[i].T_world_curr, [[0, 0, 0, 1]]])
+    return frames[i].image, (np.linalg.inv(T_cur) @ T_ref)[:3].astype(np.float32)
 
-    pst = empty_state(24, 32, cam)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pepi.match(pst, torch.tensor(frames[0].image), torch.eye(4)[:3], cam,
-                   pcfg.RemodeConfig(match_mode="walk"))
+
+def test_walk_matches_jax_walk():
+    """The walk oracle against the JAX walk on frame 4 of the 160x120
+    scene: found equal on >= 0.999 of the pixels, and u, v within 1e-4 on
+    >= 0.999 (where the NCC of two steps ties to float32 rounding, the
+    other step wins: 1 pixel of 19,200 here)."""
+    frames = synthetic.generate(n_frames=5, width=160, height=120, cam=CAM_SMALL, seed=3)
+    jst, pst = _states(frames)
+    img, T = _frame_pair(frames, 4)
+    want = jepi.match_epipolar_walk(jst, jnp.asarray(img), jnp.asarray(T),
+                                    jcamera.PinholeCamera.create(**CAM_SMALL),
+                                    jcfg.RemodeConfig(match_mode="walk"))
+    got = pepi.match(pst, torch.tensor(img), torch.tensor(T),
+                     pcamera.PinholeCamera.create(**CAM_SMALL),
+                     pcfg.RemodeConfig(match_mode="walk"))
+    fj, fp = np.asarray(want.found), got.found.numpy()
+    assert (fj == fp).mean() >= 0.999 and fp.mean() > 0.5
+    close = ((np.abs(got.u.numpy() - np.asarray(want.u)) <= 1e-4)
+             & (np.abs(got.v.numpy() - np.asarray(want.v)) <= 1e-4))
+    assert close.mean() >= 0.999, close.mean()
+
+
+@pytest.mark.parametrize("fast_mode", ["rect", "sweep"])
+def test_walk_agrees_with_fast_matchers(fast_mode):
+    """tests/test_matching.py: where the port's fast matcher and its walk
+    are both confident (NCC > 0.9, 10 px inside), their matches lie within
+    a median 1.5 px of each other."""
+    frames = synthetic.generate(n_frames=5, width=160, height=120, cam=CAM_SMALL, seed=3)
+    _, pst = _states(frames)
+    img, T = _frame_pair(frames, 4)
+    cam = pcamera.PinholeCamera.create(**CAM_SMALL)
+    res = {mode: pepi.match(pst, torch.tensor(img), torch.tensor(T), cam,
+                            pcfg.RemodeConfig(match_mode=mode, num_planes=127))
+           for mode in (fast_mode, "walk")}
+    s, wk = res[fast_mode], res["walk"]
+    both = s.found & wk.found & (s.best_ncc > 0.9) & (wk.best_ncc > 0.9)
+    interior = torch.zeros_like(both)
+    interior[10:-10, 10:-10] = True
+    both = (both & interior).numpy()
+    assert both.mean() > 0.2, both.mean()
+    err = np.hypot(s.u.numpy() - wk.u.numpy(), s.v.numpy() - wk.v.numpy())[both]
+    assert np.median(err) < 1.5, np.median(err)

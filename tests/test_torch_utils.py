@@ -1,15 +1,24 @@
-"""The port's timing and device utilities against the JAX package's
-(``utils/profiling.py``, ``utils/devices.py``)."""
+"""The port's timing, device, image and visualization utilities against the
+JAX package's (``utils/profiling.py``, ``utils/devices.py``,
+``utils/image_ops.py``, ``utils/visualize.py``)."""
 
 import json
 
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from rpg_open_remode_tpu.utils import camera as jcamera
 from rpg_open_remode_tpu.utils import devices as jdevices
+from rpg_open_remode_tpu.utils import image_ops as jimage_ops
 from rpg_open_remode_tpu.utils import profiling as jprof
+from rpg_open_remode_tpu.utils import visualize as jvisualize
+from rpg_open_remode_tpu_torch.utils import camera as pcamera
 from rpg_open_remode_tpu_torch.utils import devices as pdevices
+from rpg_open_remode_tpu_torch.utils import image_ops as pimage_ops
 from rpg_open_remode_tpu_torch.utils import profiling as pprof
+from rpg_open_remode_tpu_torch.utils import visualize as pvisualize
 
 torch.set_num_threads(2)
 
@@ -68,3 +77,51 @@ def test_validate_mesh_shape_equals_jax(shape):
         except ValueError as e:
             results.append(str(e))
     assert results[0] == results[1]
+
+
+@pytest.mark.parametrize("name", ["scharr_x", "scharr_y", "gradient_magnitude", "downsample2"])
+def test_image_ops_match_jax(name):
+    """The same float32 arithmetic in the same order: within 1e-6 of the
+    JAX function (odd sizes, so downsample2 drops a row and a column)."""
+    img = np.random.default_rng(3).random((37, 53), dtype=np.float32)
+    got = getattr(pimage_ops, name)(torch.tensor(img)).numpy()
+    want = np.asarray(getattr(jimage_ops, name)(jnp.asarray(img)))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_pyramid_matches_jax():
+    img = np.random.default_rng(4).random((64, 96), dtype=np.float32)
+    got = pimage_ops.pyramid(torch.tensor(img), 3)
+    want = jimage_ops.pyramid(jnp.asarray(img), 3)
+    assert [tuple(g.shape) for g in got] == [(64, 96), (32, 48), (16, 24)]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-6)
+
+
+def test_epipolar_pair_equals_jax():
+    """The annotated image pair and the fundamental matrix: the same bytes."""
+    rng = np.random.default_rng(5)
+    ref, curr = rng.random((2, 48, 64), dtype=np.float32)
+    T = np.array([[0.999, -0.02, 0.03, 0.1], [0.02, 0.999, 0.01, -0.02],
+                  [-0.03, -0.01, 0.999, 0.01]], np.float32)
+    cam = dict(fx=48.0, fy=-47.5, cx=31.5, cy=23.5)
+    pixels, depths = [(10, 12), (40, 30), (55, 5)], [1.5, 2.0, 3.0]
+    got = pvisualize.epipolar_pair(ref, curr, T, pcamera.PinholeCamera.create(**cam), pixels,
+                                   depths)
+    want = jvisualize.epipolar_pair(ref, curr, T, jcamera.PinholeCamera.create(**cam), pixels,
+                                    depths)
+    assert got.shape == (48, 128, 3) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    K = np.array([[48.0, 0, 31.5], [0, -47.5, 23.5], [0, 0, 1]])
+    np.testing.assert_array_equal(pvisualize.fundamental_matrix(T, K),
+                                  jvisualize.fundamental_matrix(T, K))
+
+
+def test_colorize_depth_equals_jax():
+    depth = np.random.default_rng(6).uniform(0.5, 4.0, (30, 40)).astype(np.float32)
+    depth[3, 4] = np.nan
+    mask = depth < 3.5
+    for m in (None, mask):
+        np.testing.assert_array_equal(pvisualize.colorize_depth(depth, m),
+                                      jvisualize.colorize_depth(depth, m))
