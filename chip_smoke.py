@@ -21,8 +21,15 @@ and the CLI in-process; then the concurrent-keyframe ring: four slots held
 bit for bit against four single engines, ``MultiKeyframeNode`` over the
 200 frames at B = 1, 2 and 4, the CLI's ``run --keyframes 4 --propagate``
 with exact launch counts, and the epipolar-walk oracle against the
-rectified matcher on frame 10. Each resample pass is also timed as one
-``grid_sample`` call, the library yardstick.
+rectified matcher on frame 10. Then the device mesh (``parallel/``): the
+sharded step at (1,1,1) (NCCL, one rank), (1,2,2) and (2,1,2) (four spawned
+ranks sharing the card, gloo collectives staged through pinned host memory)
+over the first 40 frames against single engines fed alike, every rank's
+band-slab sweep and resample calls of frame 10 held bit for bit against
+their plain versions and timed, the sharded TV-L1 against the
+single-device one, and the CLI's ``run --mesh 2,1,2 --keyframes 2
+--propagate``. Each resample pass is also timed as one ``grid_sample``
+call, the library yardstick.
 
 ``--baseline DIR`` also builds the kernels of another checkout's
 ``rpg_open_remode_tpu_torch/csrc`` (for example the parent commit, unpacked
@@ -1230,6 +1237,325 @@ def ring_phase(torch, P, kernels, frames640, run640):
     return out
 
 
+# -- the device mesh ------------------------------------------------------------
+
+
+MESH_SHAPES = ((1, 1, 1), (1, 2, 2), (2, 1, 2))
+MESH_FRAMES = 40
+MESH_RESEED = 10         # kf = 2: slot 1 is reseeded on this frame, as the node's stagger
+MESH_DENOISE = (1, 2, 2)
+# conv agreement with the single-device engine: (1,1,1) runs the single
+# path's math; the bands add a halo and a band-local coarse gate, held as
+# the JAX package's own sharded rect path (tests/test_sharded.py:201)
+MESH_CONV = {(1, 1, 1): 0.999, (1, 2, 2): 0.995, (2, 1, 2): 0.995}
+# converged-mu relative difference over the pixels converged in both: the
+# p99 is held below 2 %, as the JAX package's own sharded-against-single
+# check holds it (__graft_entry__.py:192-200: "band seams admit a few
+# per-pixel outliers"). MULTICHIP_r05 read a max of 2.8 % there (128x160,
+# ~820 converged pixels); here the max is printed beside that figure, and
+# the share of pixels above it is held to MESH_MU_OVER, 5x the sound runs'
+# readings (<= 0.01 %), below what one corrupted band row (up to 768
+# pixels, ~0.4 %) would give
+MESH_MU_P99 = 0.02
+MESH_MU_REL = 0.028
+MESH_MU_OVER = 5e-4
+
+
+def slab_calls(torch, kept, keep_frame):
+    """Frame ``keep_frame``'s sweep and resample calls, plus the coarse
+    sweep of the last frame up to it that ran one (None when no frame did)."""
+    out = [(keep_frame, kind, args) for kind, args in kept[keep_frame]]
+    coarse = [(i, kind, args) for i in sorted(kept) for kind, args in kept[i]
+              if kind == "sweep" and not args[10]]
+    if coarse and not any(kind == "sweep" and not args[10] for _, kind, args in out):
+        out.append(coarse[-1])
+    return out
+
+
+def mesh_rank(mesh, io, frames, denoise):
+    """One rank of a parallel-phase mesh (a spawned process): the ring of
+    one slot per kf row, seeded on frame 0 with the sharded reseed, stepped
+    over the other frames with the sharded step (slot 1 reseeded on
+    MESH_RESEED); launch counts zeroed before the steps. Keeps frames
+    COARSE_FROM..KEEP_FRAME's kernel calls (the band's slab shapes) and holds
+    each of KEEP_FRAME's, and the last coarse pass up to it, against its
+    plain version; times them; with ``denoise`` also runs the sharded
+    TV-L1. Returns the rank's tiles and figures."""
+    import torch
+    import torch.distributed as dist
+
+    from rpg_open_remode_tpu_torch import kernels
+    from rpg_open_remode_tpu_torch.config import RemodeConfig
+    from rpg_open_remode_tpu_torch.models.state import SceneParams, empty_state
+    from rpg_open_remode_tpu_torch.parallel import (
+        build_sharded_denoise, build_sharded_reseed, build_sharded_update,
+    )
+    from rpg_open_remode_tpu_torch.parallel.distributed import local_block
+    from rpg_open_remode_tpu_torch.parallel.sharded import tile_state
+    from rpg_open_remode_tpu_torch.utils import se3
+    from rpg_open_remode_tpu_torch.utils.camera import PinholeCamera
+
+    dev = mesh.device
+    h, w = frames[0][0].shape
+    cam = PinholeCamera.create(CAM_640["fx"], CAM_640["fy"], CAM_640["cx"], CAM_640["cy"],
+                               device=dev)
+    cfg = RemodeConfig.for_camera(CAM_640["fx"])
+    step = build_sharded_update(mesh, cam, cfg, h, w)
+    reseed = build_sharded_reseed(mesh, cam, cfg, h, w)
+
+    def frame(j):
+        img, T, bounds = frames[j]
+        T = torch.tensor(T, device=dev)
+        return (torch.as_tensor(img).to(dev), T,
+                SceneParams.create(*bounds, cfg, device=dev))
+
+    img, T, scene = frame(0)
+    states = [tile_state(empty_state(h, w, cam), mesh)]
+    for slot in range(mesh.axis_size("kf")):
+        states = reseed(states, slot, img, se3.inv(T), scene)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    staged0 = mesh.staged["bytes"]
+    kept, frame_ms = {}, []
+    for j in range(1, len(frames)):
+        img, T, scene = frame(j)
+        calls = kept.setdefault(j, []) if COARSE_FROM <= j <= KEEP_FRAME else None
+        t0 = time.perf_counter()
+        with intercept(None if calls is None else (lambda kind, args: calls.append((kind, args)))):
+            states, stats = step(states, img, T)
+        torch.cuda.synchronize()
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+        if mesh.axis_size("kf") == 2 and j == MESH_RESEED:
+            states = reseed(states, 1, img, se3.inv(T), scene)
+    torch.cuda.synchronize()
+    out = dict(rank=mesh.rank, backend=mesh.backend, device=str(dev),
+               launches=dict(kernels.LAUNCHES), frame_ms=frame_ms,
+               staged_bytes=mesh.staged["bytes"] - staged0, state=local_block(states),
+               packed=stats["packed"].cpu().numpy())
+    # one rank at a time, so that no other rank's work shares the card
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            out["calls"] = slab_parity(torch, slab_calls(torch, kept, KEEP_FRAME))
+        dist.barrier()
+    if denoise:
+        run = build_sharded_denoise(mesh, cfg, h, w, iterations=cfg.denoise_iters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        den = run(states, cfg.denoise_lambda)
+        torch.cuda.synchronize()
+        out.update(denoise=np.stack([d.cpu().numpy() for d in den]),
+                   denoise_ms=1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def slab_parity(torch, calls):
+    """Each kept kernel call against its plain version, and its time (CUDA
+    graph) beside its bound."""
+    from rpg_open_remode_tpu_torch.ops import resample_cuda, sweep_cuda
+
+    out = []
+    for i, kind, args in calls:
+        if kind == "sweep":
+            got = sweep_cuda.disparity_sweep(*args)
+            want = sweep_cuda.disparity_sweep_plain(*args)
+            err = max(max_err(g, x) for g, x in zip(got, want))
+            wk = sweep_work(torch, args)
+            name = "sweep " + ("full" if args[10] else "coarse")
+            fn, bnd = (lambda a=args: sweep_cuda.disparity_sweep(*a)), bound(wk["bytes"], wk["flops"])
+            shape = tuple(args[2].shape)
+        else:
+            fn_k = getattr(resample_cuda, f"resample_{kind}")
+            err = max_err(fn_k(*args), getattr(resample_cuda, f"resample_{kind}_plain")(*args))
+            name = f"resample_{kind} C={args[0].shape[0]}"
+            fn, bnd = (lambda f=fn_k, a=args: f(*a)), bound(*resample_bytes(kind, *args))
+            shape = (tuple(args[0].shape), tuple(args[1].shape))
+        out.append(dict(frame=i, name=name, shape=str(shape), max_abs_err=err,
+                        ms=graph_ms(torch, fn), bound=bnd))
+    return out
+
+
+def mesh_reference(torch, P, frames):
+    """The single-device engine fed alike: ``Depthmap``s seeded on frame 0
+    and on MESH_RESEED, each updated on every later frame (the slots of a
+    kf = 2 mesh). Returns their final states and the per-frame ms of the
+    first (CUDA events)."""
+    h, w = frames[0].image.shape
+    cam = (CAM_640["fx"], CAM_640["cx"], CAM_640["fy"], CAM_640["cy"])
+    out, ms = [], []
+    for first in (0, MESH_RESEED):
+        eng = P.Depthmap(w, h, *cam)
+        eng.set_reference_image(frames[first].image, Tcw(frames[first]), *gt_bounds(frames[first]))
+        for fr in frames[first + 1:MESH_FRAMES]:
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            eng.update(fr.image, Tcw(fr))
+            e.record()
+            if first == 0:
+                ms.append((s, e))
+        out.append(eng)
+    torch.cuda.synchronize()
+    return out, [s.elapsed_time(e) for s, e in ms]
+
+
+def mesh_agreement(P, got, eng):
+    """conv agreement of a gathered slot with a single engine; over the
+    pixels converged in both, the relative difference of mu (median, p99,
+    max, and how many exceed MESH_MU_REL) and its max for sigma_sq; whether
+    mu, sigma_sq and conv are equal bit for bit."""
+    conv, want = got["conv"], eng.state.conv.cpu().numpy()
+    both = (conv == int(P.ConvergenceState.CONVERGED)) & (want == int(P.ConvergenceState.CONVERGED))
+
+    def rel(name):
+        a, b = got[name][both], getattr(eng.state, name).cpu().numpy()[both]
+        return np.abs(a - b) / np.abs(b)
+
+    mu, sig = rel("mu"), rel("sigma_sq")
+    q = np.percentile(mu, [50, 99, 100]) if mu.size else [float("nan")] * 3
+    exact = all(np.array_equal(got[f], getattr(eng.state, f).cpu().numpy())
+                for f in ("mu", "sigma_sq", "conv"))
+    return dict(conv=float((conv == want).mean()), converged=int(both.sum()),
+                mu_rel_median=float(q[0]), mu_rel_p99=float(q[1]), mu_rel_max=float(q[2]),
+                mu_over=int((mu > MESH_MU_REL).sum()),
+                sigma_sq_rel_max=float(sig.max()) if sig.size else float("nan"), exact=exact)
+
+
+def mesh_phase(torch, P, kernels, frames640):
+    """The device mesh on the card: the sharded step at each MESH_SHAPES
+    over the first MESH_FRAMES frames against the single engine, the kernel
+    calls of the band slabs against their plain versions, the sharded TV-L1
+    at MESH_DENOISE against the single-device one, and the CLI's ``run
+    --mesh 2,1,2 --keyframes 2 --propagate``. Ranks are spawned processes
+    sharing the card (gloo collectives, staged through pinned host memory)
+    or, for one rank, NCCL."""
+    from rpg_open_remode_tpu_torch.models.depthmap import denoise_depthmap
+    from rpg_open_remode_tpu_torch.parallel import join_state_numpy, run_ranks
+
+    frames = frames640[:MESH_FRAMES]
+    feed = [(fr.image, Tcw(fr), gt_bounds(fr)) for fr in frames]
+    refs, ref_ms = mesh_reference(torch, P, frames)
+    out = dict(single_ms_median=float(np.median(ref_ms)),
+               single_ms_p90=float(np.percentile(ref_ms, 90)), meshes={})
+    log(f"  single engine, first {MESH_FRAMES} frames: per frame median "
+        f"{out['single_ms_median']:.3f} ms, p90 {out['single_ms_p90']:.3f} ms")
+    bad = []
+    for shape in MESH_SHAPES:
+        t0 = time.perf_counter()
+        ranks = run_ranks(mesh_rank, shape, (feed, shape == MESH_DENOISE), device="cuda",
+                          timeout=600)
+        got = join_state_numpy([r["state"] for r in ranks], shape)
+        n = len(ranks)
+        ms = np.array(ranks[0]["frame_ms"])
+        r = dict(seconds=time.perf_counter() - t0, backend=ranks[0]["backend"],
+                 devices=[x["device"] for x in ranks], frame_ms_median=float(np.median(ms)),
+                 frame_ms_p90=float(np.percentile(ms, 90)),
+                 staged_bytes_per_frame=sum(x["staged_bytes"] for x in ranks) / len(ms),
+                 launches=[x["launches"] for x in ranks], slots=[], calls=[])
+        for k in range(shape[0]):
+            a = mesh_agreement(P, {f: got[f][k] for f in ("conv", "mu", "sigma_sq")}, refs[k])
+            r["slots"].append(a)
+            ok = a["conv"] >= MESH_CONV[shape] and (
+                not a["converged"] or (a["mu_rel_p99"] <= MESH_MU_P99
+                                       and a["mu_over"] <= MESH_MU_OVER * a["converged"]))
+            log(f"  mesh {shape} slot {k} (seeded on frame {0 if k == 0 else MESH_RESEED}) "
+                f"against a single Depthmap: conv agreement {a['conv']:.5f} (>= "
+                f"{MESH_CONV[shape]}); {a['converged']} pixels converged in both, mu rel diff "
+                f"median {a['mu_rel_median']:.3g}, p99 {a['mu_rel_p99']:.3g} (<= {MESH_MU_P99}), "
+                f"max {a['mu_rel_max']:.4g} (MULTICHIP_r05 read {MESH_MU_REL}), {a['mu_over']} "
+                f"pixels above {MESH_MU_REL} (<= {MESH_MU_OVER * a['converged']:.0f}); sigma_sq "
+                f"max {a['sigma_sq_rel_max']:.3g}; mu, sigma_sq and conv bit-exact "
+                f"{a['exact']}{'' if ok else ' OUTSIDE'}")
+            if not ok:
+                bad.append(f"{shape} slot {k}")
+        for x in ranks:
+            for c in x["calls"]:
+                c = dict(c, rank=x["rank"])
+                r["calls"].append(c)
+                log(f"    rank {x['rank']} frame {c['frame']} {c['name']} {c['shape']}: max err "
+                    f"{c['max_abs_err']:.3g}; {c['ms']:.4f} ms (CUDA graph), bound "
+                    f"{c['bound'][0]:.4f} ms by {c['bound'][1]}")
+                if c["max_abs_err"] != 0.0:
+                    bad.append(f"{shape} rank {x['rank']} {c['name']} differs from its plain version")
+        if shape == MESH_DENOISE:
+            den = join_state_numpy([{"mu": x["denoise"]} for x in ranks], shape)["mu"][0]
+            st = P.state_from_numpy({k: v[0] if k != "scene" else {s: y[0] for s, y in v.items()}
+                                     for k, v in got.items()}, device=refs[0].device)
+            cfg = refs[0].cfg
+            want = denoise_depthmap(st, cfg, lam=cfg.denoise_lambda,
+                                    iterations=cfg.denoise_iters).cpu().numpy()
+            err = np.abs(den - want)
+            ok = bool((err <= 1e-5 + 1e-4 * np.abs(want)).all())
+            r["denoise"] = dict(ms=max(x["denoise_ms"] for x in ranks), max_abs_err=float(err.max()),
+                                within=ok)
+            log(f"  mesh {shape} sharded TV-L1 ({cfg.denoise_iters} iterations, 1-px halos, "
+                f"plain PyTorch): {r['denoise']['ms']:.1f} ms; against the single-device "
+                f"denoise max abs err {err.max():.3g} (rtol 1e-4, atol 1e-5: "
+                f"{'ok' if ok else 'OUTSIDE'})")
+            if not ok:
+                bad.append(f"{shape} denoise")
+        log(f"  mesh {shape}: {n} rank(s), backend {r['backend']}, devices {r['devices']}; "
+            f"sharded step per frame median {r['frame_ms_median']:.3f} ms, p90 "
+            f"{r['frame_ms_p90']:.3f} ms (rank 0, host clock, synchronized); staged "
+            f"{r['staged_bytes_per_frame'] / 1e6:.3f} MB per frame over all ranks; launches "
+            f"per rank {r['launches']}; {r['seconds']:.1f} s")
+        missing = [(i, k) for i, x in enumerate(r["launches"]) for k in ("sweep", "resample_rows",
+                                                                          "resample_cols")
+                   if x[k] <= 0]
+        if missing or not r["calls"]:
+            bad.append(f"{shape}: kernels not launched {missing}")
+        out["meshes"][str(shape)] = r
+    out["cli"] = mesh_cli(torch, kernels)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
+def mesh_cli(torch, kernels):
+    """``run --synthetic --frames 60 --mesh 2,1,2 --keyframes 2 --propagate
+    --map-voxel 0.01`` through ``cli.main`` in this process: it exports
+    keyframes, and every rank launched the sweep and both resamplers."""
+    from rpg_open_remode_tpu_torch import cli
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        out_dir = Path(tmp) / "mesh"
+        argv = ["--device", "cuda", "run", "--synthetic", "--frames", "60", "--mesh", "2,1,2",
+                "--keyframes", "2", "--propagate", "--map-voxel", "0.01", "--out", str(out_dir)]
+        log("  " + " ".join(argv[2:-2]))
+        t0 = time.perf_counter()
+        res = cli.main(argv)
+        wall = time.perf_counter() - t0
+        files = sorted(p.name for p in out_dir.iterdir())
+    n_kf = len(res.keyframes)
+    r = dict(wall_s=wall, keyframes=n_kf, switches=res.switches,
+             launches=[x["launches"] for x in res.ranks],
+             frame_ms_median=float(np.median(res.ranks[0]["frame_ms"])),
+             frame_ms_p90=float(np.percentile(res.ranks[0]["frame_ms"], 90)),
+             frame_ms_max=max(max(x["frame_ms"]) for x in res.ranks),
+             switch_ms=[x["switch_ms"] for x in res.ranks],
+             staged_bytes=[x["staged"]["bytes"] for x in res.ranks],
+             converged_pct=[k.converged_percentage for k in res.keyframes])
+    for x in res.ranks:
+        sw = ", ".join(f"{t:.1f}" for t in x["switch_ms"])
+        log(f"    rank {x['rank']} ({x['device']}, {x['backend']}): launches {x['launches']}, "
+            f"{x['keyframes']} keyframes exported, staged {x['staged']['bytes'] / 1e6:.1f} MB; "
+            f"frames that finalized a keyframe (the sharded TV-L1 and the gather on the "
+            f"loop's thread) {sw} ms")
+    log(f"  the CLI's mesh run: {n_kf} keyframes, switches {res.switches}, {wall:.1f} s; per "
+        f"frame median {r['frame_ms_median']:.3f} ms, p90 {r['frame_ms_p90']:.3f} ms (rank 0), "
+        f"max {r['frame_ms_max']:.1f} ms (any rank)")
+    want = {f"kf_{i:03d}{s}" for i in range(n_kf) for s in ("_depth.npy", "_cloud.ply",
+                                                            "_convergence.png")}
+    problems = []
+    if n_kf < 1 or not want <= set(files) or "global_map.ply" not in files:
+        problems.append(f"{n_kf} keyframes, files {files}")
+    problems += [f"rank {x['rank']} launched no {k}" for x in res.ranks
+                 for k in ("sweep", "resample_rows", "resample_cols") if x["launches"][k] <= 0]
+    if problems:
+        raise AssertionError("the CLI's mesh run: " + "; ".join(problems))
+    return r
+
+
 def grid_sample_call(torch, kind, img, coord):
     """One ``torch.nn.functional.grid_sample`` call (bilinear, border
     padding, align_corners) that computes ``resample_<kind>(img, coord)``:
@@ -1536,6 +1862,10 @@ def main() -> int:
           "--keyframes 4 run, the walk oracle)")
     ring = ring_phase(torch, P, kernels, frames640, run640)
 
+    phase(f"the device mesh (the sharded step at {', '.join(map(str, MESH_SHAPES))} over "
+          f"{MESH_FRAMES} frames, band slab kernels, sharded TV-L1, the CLI's --mesh 2,1,2 run)")
+    mesh = mesh_phase(torch, P, kernels, frames640)
+
     phase(f"kernel timings (frame {KEEP_FRAME} of the 640x480 run; TV-L1 also at 1280x720)")
     rows = kernel_timings(torch, dev, P, run640, run720, calls)
 
@@ -1570,6 +1900,15 @@ def main() -> int:
                          bound_ms_1280x720=t7["bound"][0])
         entry["launches_lifecycle"] = cli_out["synthetic"]["launches"][k]
         entry["launches_ring"] = ring["cli"]["launches"][k]
+        entry["launches_mesh"] = sum(x[k] for x in mesh["cli"]["launches"])
+        # the slowest of every rank's frame-10 slab calls (full sweep, or
+        # one resample pass), with that call's own bound
+        slab = [c for m in mesh["meshes"].values() for c in m["calls"]
+                if (c["name"] == "sweep full" if k == "sweep" else c["name"].split()[0] == k)]
+        if slab:
+            slow = max(slab, key=lambda c: c["ms"])
+            entry.update(ms_slab_slowest=slow["ms"], bound_ms_slab_slowest=slow["bound"][0],
+                         slab_slowest=f"{slow['name']} {slow['shape']}")
         out.append(entry)
     log("  library_ms: one grid_sample call per resample pass; no single PyTorch call computes "
         "the sweep or TV-L1 (null)")
@@ -1586,7 +1925,8 @@ def main() -> int:
                 card=smi, build_s=kernels.build_seconds, kernels=out,
                 run640={k: run640[k] for k in keep}, run720={k: run720[k] for k in keep},
                 timings=rows, work=work, profile=prof, lifecycle=life, propagation=prop,
-                profile_lifecycle=prop_run, cli=cli_out, ring=ring, baseline=base)), f, indent=1)
+                profile_lifecycle=prop_run, cli=cli_out, ring=ring, mesh=mesh,
+                baseline=base)), f, indent=1)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -61,6 +61,9 @@ class KeyframeResult:
     denoised_depth: np.ndarray    # TV-L1 regularized depth map
     converged_percentage: float
     n_updates: int
+    # the keyframe's number among those its host exports (parallel/node.py;
+    # None where one process numbers its own exports)
+    index: int | None = None
 
 
 def _fetch(packed: torch.Tensor):
@@ -87,13 +90,17 @@ class LifecycleNode:
         self._pending: list[Future] = []
         self.keyframes: list[KeyframeResult] = []
 
+    @property
+    def device(self) -> torch.device:
+        return self.engine.device
+
     # -- worker thread -------------------------------------------------------
 
     def _submit(self, fn, *args) -> None:
         """Run ``fn(*args)`` on the worker thread, on the stream current
         here (the loop's), so that it sees every frame launched so far."""
         self._prune_pending()
-        dev = self.engine.device
+        dev = self.device
         stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
 
         def task():

@@ -242,18 +242,24 @@ def test_cli_run_keyframes(tmp_path, propagate):
     assert (out / "global_map.ply").is_file()
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "1,1,1"], ["--distributed", "localhost:1"],
+@pytest.mark.parametrize("flags", [["--mesh", "1,1"], ["--distributed", "localhost:1"],
                                    ["--host-devices", "2"]])
-def test_cli_refuses_unported_paths(flags):
+def test_cli_refuses_unported_paths(flags, tmp_path):
+    """The mesh is ported (``parallel/``); what it cannot run exits non-zero
+    before any work: a mesh that is not KF,TY,TX, and the multi-host and
+    host-device flags without ``--mesh``."""
     with pytest.raises(SystemExit) as exc:
-        cli.main(["--device", "cpu", "run", "--synthetic", "--frames", "2", *flags])
+        cli.main(["--device", "cpu", "run", "--synthetic", "--frames", "2", *flags,
+                  "--out", str(tmp_path / "out")])
     assert exc.value.code not in (0, None)
-    assert "item 17" in str(exc.value.code) and "item 15" not in str(exc.value.code)
+    assert "--mesh" in str(exc.value.code)
+    assert not (tmp_path / "out").exists()
 
 
 def test_cli_has_no_multiprocess_flags():
-    """The multi-process flags belong to the mesh (ROADMAP item 17): an
-    argument error, never a silent single-process run."""
+    """The multi-process flags belong to the mesh (``--mesh
+    --distributed``): an argument error, never a silent single-process
+    run."""
     with pytest.raises(SystemExit) as exc:
         cli.main(["--device", "cpu", "run", "--synthetic", "--frames", "2",
                   "--nproc", "2", "--proc", "1"])
