@@ -3,33 +3,38 @@
 
     python3 chip_smoke.py [--out PATH] [--baseline DIR]
 
-Builds the CUDA kernels of ``rpg_open_remode_tpu_torch/csrc`` and checks each
-against its plain PyTorch version at the main path's shapes (numpy-seeded,
-ragged-band and edge-case inputs); drives the single-keyframe engine
-through ``Depthmap`` at 640x480 (the hardened ``over_table`` protocol: 200
-frames, one keyframe, a 200-iteration denoise) and at 1280x720 (80 frames,
-focal-scaled config), checking the launch counters and the accuracy against
-the scene's ground truth. The 640x480 run keeps the kernel inputs of frame
-10 (the full sweep, three warps) and of the last earlier frame that runs the
-coarse sweep; each kernel is held bit for bit against its plain version and
-timed on those. A replay of the 640x480 run under ``torch.profiler`` sums
-each kernel's device time and the device's busy share; it also keeps every
-sweep call's inputs, and afterwards each call's work, bound and lane use
-(measured by the sweep kernel's counting build) are added up over the run.
-Then the keyframe lifecycle: eval.py's keyframe-segment rows, propagation,
-and the CLI in-process; then the concurrent-keyframe ring: four slots held
-bit for bit against four single engines, ``MultiKeyframeNode`` over the
-200 frames at B = 1, 2 and 4, the CLI's ``run --keyframes 4 --propagate``
-with exact launch counts, and the epipolar-walk oracle against the
-rectified matcher on frame 10. Then the device mesh (``parallel/``): the
-sharded step at (1,1,1) (NCCL, one rank), (1,2,2) and (2,1,2) (four spawned
-ranks sharing the card, gloo collectives staged through pinned host memory)
-over the first 40 frames against single engines fed alike, every rank's
-band-slab sweep and resample calls of frame 10 held bit for bit against
-their plain versions and timed, the sharded TV-L1 against the
-single-device one, and the CLI's ``run --mesh 2,1,2 --keyframes 2
---propagate``. Each resample pass is also timed as one ``grid_sample``
-call, the library yardstick.
+Builds the CUDA kernels of ``rpg_open_remode_tpu_torch/csrc`` and checks
+each against its plain PyTorch version at the main path's shapes
+(numpy-seeded, ragged-band and edge-case inputs), and again at the shapes of
+EVAL.json's live and FHD rows (752x480; 1920x1080 at patch 15 and 17 with
+383 planes), with the sweep's shared memory per block and blocks per SM
+there; drives the single-keyframe engine through ``Depthmap`` at 640x480
+(the hardened ``over_table`` protocol: 200 frames, one keyframe, a
+200-iteration denoise) and at 1280x720 (80 frames, focal-scaled config),
+checking the launch counters and the accuracy against the scene's ground
+truth. The 640x480 run keeps the kernel inputs of frame 10 (the full sweep,
+three warps) and of the last earlier frame that runs the coarse sweep; each
+kernel is held bit for bit against its plain version and timed on those. A
+12-frame 1920x1080 run at ``for_camera(1443.6)`` does the same on its own
+frame-10 inputs and prints the plain versions' peak device memory. A replay
+of the 640x480 run under ``torch.profiler`` sums each kernel's device time
+and the device's busy share; it also keeps every sweep call's inputs, and
+afterwards each call's work, bound and lane use (measured by the sweep
+kernel's counting build) are added up over the run. Then the keyframe
+lifecycle: eval.py's keyframe-segment rows (through the port's
+``rpg_open_remode_tpu_torch.eval``), propagation, and the CLI in-process;
+then the concurrent-keyframe ring: four slots held bit for bit against four
+single engines, ``MultiKeyframeNode`` over the 200 frames at B = 1, 2 and 4,
+the CLI's ``run --keyframes 4 --propagate`` with exact launch counts, and
+the epipolar-walk oracle against the rectified matcher on frame 10. Then the
+device mesh (``parallel/``): the sharded step at (1,1,1) (NCCL, one rank),
+(1,2,2) and (2,1,2) (four spawned ranks sharing the card, gloo collectives
+staged through pinned host memory) over the first 40 frames against single
+engines fed alike, every rank's band-slab sweep and resample calls of frame
+10 held bit for bit against their plain versions and timed, the sharded
+TV-L1 against the single-device one, and the CLI's ``run --mesh 2,1,2
+--keyframes 2 --propagate``. Each resample pass is also timed as one
+``grid_sample`` call, the library yardstick.
 
 ``--baseline DIR`` also builds the kernels of another checkout's
 ``rpg_open_remode_tpu_torch/csrc`` (for example the parent commit, unpacked
@@ -249,19 +254,34 @@ def tvl1_weights(state, cfg):
     return denoise.compute_weights(state.a, state.b, state.sigma_sq, large).contiguous()
 
 
-def kernel_parity(torch, dev, P):
+# kernel parity sizes: name -> (width, height, fx, for_camera overrides).
+# The main path's, and those of EVAL.json's live and FHD rows (patch 5 at
+# 752x480, whose width leaves the resamplers a partial last block; patch 15
+# with 383 planes at 1920x1080, and its patch-17 row)
+MAIN_SIZES = {"640x480": (640, 480, 481.2, {}), "1280x720": (1280, 720, 962.4, {})}
+ROW_SIZES = {"752x480": (752, 480, 481.2, {}), "1920x1080": (1920, 1080, 1443.6, {}),
+             "1920x1080 p17": (1920, 1080, 1443.6, dict(patch_side=17))}
+
+
+def kernel_parity(torch, dev, P, sizes):
+    """Each kernel against its plain version, bit for bit, at each size's
+    shapes: the sweep on numpy-seeded, ragged-band and edge-case inputs (full
+    pass and half-width coarse pass), both resamplers at the three warps'
+    shapes, TV-L1 at 200 and 37 iterations (warps and TV-L1 once per image
+    size). Returns the max error per kernel (0)."""
     from rpg_open_remode_tpu_torch.ops import denoise, denoise_cuda, resample_cuda, sweep_cuda
     from rpg_open_remode_tpu_torch.ops.rect_match import rect_shape
     from rpg_open_remode_tpu_torch.testing import sweep_cases
 
     errs = {k: 0.0 for k in KERNELS}
     rng = np.random.default_rng(0)
+    done = set()
 
     def tensors(arrays):
         return [torch.tensor(a, device=dev) for a in arrays]
 
-    for name, (w, h, fx) in {"640x480": (640, 480, 481.2), "1280x720": (1280, 720, 962.4)}.items():
-        cfg = P.RemodeConfig.for_camera(fx)
+    for name, (w, h, fx, over) in sizes.items():
+        cfg = P.RemodeConfig.for_camera(fx, **over)
         rh, rw = rect_shape(h, w)
         pad, K, patch, thr = cfg.disp_pad, cfg.num_planes, cfg.patch_side, cfg.ncc_threshold
         log(f" {name}: rect {rh}x{rw}, pad {pad}, planes {K}, patch {patch}")
@@ -278,6 +298,10 @@ def kernel_parity(torch, dev, P):
         for args, k, p, refine, lab in cases:
             errs["sweep"] = max(errs["sweep"], check_sweep(
                 sweep_cuda, args, thr, k, p, patch, refine, f"{name} {lab}"))
+        del cases
+        if (w, h) in done:
+            continue
+        done.add((w, h))
         for c, hs, ws, ho, wo, lab in [(5, h, w, rh, rw, "ref stack"),
                                        (1, h, w, rh, rw + 2 * pad, "curr"),
                                        (3, rh, rw, h, w, "back-warp")]:
@@ -296,6 +320,25 @@ def kernel_parity(torch, dev, P):
             errs["tvl1"] = max(errs["tvl1"], check_tvl1(torch, denoise_cuda, cfg, noisy, g,
                                                         name, iters))
     return errs
+
+
+def launch_figures(sizes):
+    """The sweep's launch figures (dynamic shared memory per block, blocks
+    per SM) for the full and coarse pass of each size's config."""
+    from rpg_open_remode_tpu_torch.config import RemodeConfig
+    from rpg_open_remode_tpu_torch.ops.sweep_cuda import sweep_occupancy
+
+    out = {}
+    for name, (_, _, fx, over) in sizes.items():
+        cfg = RemodeConfig.for_camera(fx, **over)
+        k_h = min(cfg.disp_pad // 2 - 1, cfg.num_planes // 2 + 1)
+        for lab, k in (("full", cfg.num_planes), ("coarse", k_h)):
+            occ = sweep_occupancy(cfg.patch_side, k)
+            out[f"{name} {lab}"] = dict(occ, patch=cfg.patch_side, planes=k)
+            log(f"  sweep launch, {name} {lab} pass (patch {cfg.patch_side}, {k} planes): "
+                f"{occ['smem_bytes']} B of dynamic shared memory a block, "
+                f"{occ['blocks_per_sm']} blocks of 256 threads an SM")
+    return out
 
 
 # -- main path -----------------------------------------------------------------
@@ -374,7 +417,7 @@ def replay(torch, P, frames, cam, kernels=None, events=None, kept=None, hook=Non
     for i, fr in enumerate(frames[1:], 1):
         T = Tcw(fr)
         frame_hook = None if hook is None else (lambda kind, args, i=i: hook(i, kind, args))
-        if kept is not None and COARSE_FROM <= i <= kept["frame"]:
+        if kept is not None and kept.get("first", COARSE_FROM) <= i <= kept["frame"]:
             if i == kept["frame"]:
                 kept.update(state=eng.state, img=fr.image, T=T)
             calls = kept.setdefault("calls", {}).setdefault(i, [])
@@ -405,12 +448,12 @@ def accuracy(conv, mu, den, gt, depth_range, P):
     return out
 
 
-def drive(torch, P, kernels, frames, cam, keep_frame=None):
+def drive(torch, P, kernels, frames, cam, keep_frame=None, first=COARSE_FROM):
     """The timed run: the engine through ``Depthmap`` with the launch counts
     zeroed just before and read just after. With ``keep_frame`` it also keeps
-    that frame's state and kernel inputs (``replay``). Returns timings,
-    accuracy, the counts and what was kept."""
-    kept = None if keep_frame is None else dict(frame=keep_frame)
+    that frame's state, and the kernel inputs of frames ``first`` to it
+    (``replay``). Returns timings, accuracy, the counts and what was kept."""
+    kept = None if keep_frame is None else dict(frame=keep_frame, first=first)
     events = []
     eng, den, wall_ms = replay(torch, P, frames, cam, kernels=kernels, events=events, kept=kept)
     launches = dict(kernels.LAUNCHES)
@@ -458,18 +501,18 @@ def frame_calls(run):
     coarse = [(i, args) for i in sorted(kept) for kind, args in kept[i]
               if kind == "sweep" and not args[10]]
     if "sweep full" not in out or not coarse:
-        raise AssertionError(f"frames {COARSE_FROM}-{KEEP_FRAME} ran no coarse or no full sweep")
+        raise AssertionError(f"frames {min(kept)}-{KEEP_FRAME} ran no coarse or no full sweep")
     out["coarse frame"], out["sweep coarse"] = coarse[-1]
     log(f"  full pass and warps of frame {KEEP_FRAME}; coarse pass of frame "
         f"{out['coarse frame']}, the last up to {KEEP_FRAME} that runs it")
     return out
 
 
-def real_input_parity(torch, P, run640, calls):
+def real_input_parity(torch, P, run640, calls, size="640x480", cpu_check=True):
     """Kernel against plain version, bit for bit, on frame KEEP_FRAME's own
-    kernel inputs (both sweep passes, the three warps' passes); its
-    rectification warps on the card against the plain path on the CPU; the
-    denoise of the final state."""
+    kernel inputs (both sweep passes, the three warps' passes); with
+    ``cpu_check`` its rectification warps on the card against the plain
+    path on the CPU; the denoise of the final state."""
     from rpg_open_remode_tpu_torch.models.depthmap import prep_image
     from rpg_open_remode_tpu_torch.ops import denoise_cuda, rect_match, resample_cuda, sweep_cuda
     from rpg_open_remode_tpu_torch.utils import se3
@@ -490,6 +533,11 @@ def real_input_parity(torch, P, run640, calls):
 
     kept, eng = run640["kept"], run640["eng"]
     state, cfg = kept["state"], eng.cfg
+    final = eng.state
+    errs["tvl1"] = check_tvl1(torch, denoise_cuda, cfg, final.mu.contiguous(),
+                              tvl1_weights(final, cfg), f"{size} final state")
+    if not cpu_check:
+        return errs
     cam_cpu = PinholeCamera.create(**{k: float(getattr(eng.cam, k)) for k in ("fx", "fy", "cx", "cy")},
                                    device="cpu")
     st_cpu = P.state_from_numpy(P.state_to_numpy(state), device="cpu")
@@ -505,10 +553,67 @@ def real_input_parity(torch, P, run640, calls):
         f"curr max err {e_curr:.3g}")
     if not (e_ref <= 1e-4 and e_curr <= 1e-4):
         raise AssertionError("rectification warps disagree on real inputs")
-    final = eng.state
-    errs["tvl1"] = check_tvl1(torch, denoise_cuda, cfg, final.mu.contiguous(),
-                              tvl1_weights(final, cfg), "640x480 final state")
     return errs
+
+
+# -- the FHD configuration --------------------------------------------------------
+
+FHD_FRAMES = 12
+
+
+def plain_peaks(torch, calls, eng):
+    """Peak device memory of each plain version on the FHD run's own inputs:
+    ``torch.cuda.max_memory_allocated`` over the call, less what was
+    allocated before it. Returns bytes per call."""
+    from rpg_open_remode_tpu_torch.ops import denoise_cuda, resample_cuda, sweep_cuda
+
+    cfg = eng.cfg
+    g, mu = tvl1_weights(eng.state, cfg), eng.state.mu.contiguous()
+    cases = {key: (lambda a=calls[key]: sweep_cuda.disparity_sweep_plain(*a))
+             for key in ("sweep full", "sweep coarse")}
+    for kind in ("rows", "cols"):
+        plain = getattr(resample_cuda, f"resample_{kind}_plain")
+        for lab in WARP_LABELS.values():
+            cases[f"resample_{kind} {lab}"] = (lambda f=plain, a=calls[(kind, lab)]: f(*a))
+    cases["tvl1 200 iterations"] = lambda: denoise_cuda.tvl1_plain(mu, g, 0.5, 200, cfg)
+    out = {}
+    for key, fn in cases.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        result = fn()
+        torch.cuda.synchronize()
+        out[key] = torch.cuda.max_memory_allocated() - base
+        del result
+    log("  plain versions' peak device memory above their inputs at 1920x1080: "
+        + ", ".join(f"{k} {v / 2 ** 20:.1f} MiB" for k, v in out.items())
+        + f"; {torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f} GiB on the card")
+    return out
+
+
+def fhd_run(torch, dev, P, kernels):
+    """A short run of the 1920x1080 hardened scene through ``Depthmap`` at
+    ``for_camera(1443.6)`` (patch 15, 383 planes; launch counts zeroed just
+    before, read just after): frame KEEP_FRAME's own sweep (full and the last
+    coarse pass) and warp inputs, and the final state's TV-L1, held bit for
+    bit against the plain versions; the plain versions' peak memory; each
+    kernel timed on those inputs beside its bound and plain time."""
+    from rpg_open_remode_tpu_torch.eval import CAM_1080
+
+    frames = make_frames(1920, 1080, CAM_1080, FHD_FRAMES)
+    run = drive(torch, P, kernels, frames, CAM_1080, keep_frame=KEEP_FRAME, first=1)
+    cfg = run["eng"].cfg
+    log(f"  config for_camera({CAM_1080['fx']}): patch {cfg.patch_side}, {cfg.num_planes} "
+        f"planes, disp_pad {cfg.disp_pad}")
+    report_run("1920x1080", run)
+    calls = frame_calls(run)
+    errs = real_input_parity(torch, P, run, calls, size="1920x1080", cpu_check=False)
+    peaks = plain_peaks(torch, calls, run["eng"])
+    rows = sweep_timings(torch, calls, f"the {FHD_FRAMES}-frame 1920x1080 run")
+    rows.update(resample_timings(torch, dev, calls))
+    rows["tvl1"] = tvl1_timing(torch, run["eng"], "200 iterations at 1920x1080")
+    log_timings(rows)
+    return dict(run=run, errs=errs, peaks=peaks, timings=rows)
 
 
 # -- work, bounds and lane use ------------------------------------------------------
@@ -643,78 +748,47 @@ def profile_run(torch, P, frames, cam, label, wall_ms, account=False):
 # -- keyframe lifecycle ---------------------------------------------------------
 
 
-FAST_STEP = 1.61 / 60.0   # eval.py's fast_motion pace (paper Table I, 60 fps)
-# eval.py's keyframe-segment rows of EVAL.json (mean converged % per keyframe,
-# mean within 2.6 % of range, raw): held to +-1.5 points converged and at
-# most 1.5 points below on within
-LIFECYCLE_ROWS = {
-    "over_table_lifecycle": dict(frames="over_table", n=198, seg=int(0.5 / 0.023) + 1,
-                                 propagate=False, converged_pct=72.9, within=88.7),
-    "over_table_lifecycle_propagated": dict(frames="over_table", n=198,
-                                            seg=int(0.5 / 0.023) + 1, propagate=True,
-                                            converged_pct=75.8, within=85.6),
-    "fast_motion": dict(frames="fast_motion", n=190, seg=int(0.5 / FAST_STEP) + 1,
-                        propagate=False, converged_pct=33.8, within=91.4),
-    "fast_motion_propagated": dict(frames="fast_motion", n=190, seg=int(0.5 / FAST_STEP) + 1,
-                                   propagate=True, converged_pct=65.5, within=91.0),
-}
+# eval.py's keyframe-segment rows of EVAL.json, run by the port's eval
+# (``rpg_open_remode_tpu_torch.eval``) on frames rendered once here: the
+# over_table rows on the first 198 of the 640x480 run's 200 frames (the
+# renderer's frames do not depend on the sequence length), the fast_motion
+# rows on 190 frames at 1.61 m/s and 60 fps. Held, as the eval holds every
+# row, to +-1.5 points converged per keyframe and at most 1.5 points below
+# on within 2.6 %.
+LIFECYCLE_ROWS = ("over_table_lifecycle", "over_table_lifecycle_propagated", "fast_motion",
+                  "fast_motion_propagated")
 KEEP_SWITCH = 2          # the fast_motion_propagated switch whose inputs are kept
 PROP_LABEL = "propagated_reseed"
 
 
-def keyframe_segments(torch, P, frames, cam, seg, propagate, keep_switch=None,
-                      reseed_wrap=None):
-    """eval.py's eval_keyframe_segments through the port's ``Depthmap``: a
-    new keyframe every ``seg`` frames, bounds padded 0.5x / 2.5x, accuracy
-    per keyframe without denoise against the GT range. ``keep_switch``
-    keeps that switch's outgoing state, image, pose and bounds;
-    ``reseed_wrap()`` is a context around every switch after the first.
-    Returns (mean converged %, mean within %, keyframes), kept."""
-    h, w = frames[0].image.shape
-    cfg = P.RemodeConfig(propagate_depth=True) if propagate else None
-    eng = P.Depthmap(w, h, cam["fx"], cam["cx"], cam["fy"], cam["cy"], cfg=cfg)
-    per_kf, kept = [], None
-    for k, i in enumerate(range(0, len(frames) - seg + 1, seg)):
-        gt = frames[i].depth
-        d = gt[np.isfinite(gt)]
-        bounds = (0.5 * float(d.min()), 2.5 * float(d.max()))
-        if k == keep_switch:
-            kept = dict(eng=eng, state=eng.state, img=frames[i].image, T=Tcw(frames[i]),
-                        bounds=bounds)
-        with reseed_wrap() if reseed_wrap and k else contextlib.nullcontext():
-            eng.set_reference_image(frames[i].image, Tcw(frames[i]), *bounds)
-        for fr in frames[i + 1:i + seg]:
-            eng.update(fr.image, Tcw(fr))
-        per_kf.append(accuracy(eng.convergence_map(), eng.depthmap(), None, gt,
-                               float(d.max() - d.min()), P))
+def segment_row(name, over_table, fast, **hooks):
+    """One keyframe-segment row through the port's eval on the card, on the
+    frames rendered here; ``hooks`` are eval_keyframe_segments' own."""
+    from rpg_open_remode_tpu_torch import eval as peval
 
-    def mean_of(key):
-        vals = [a[key] for a in per_kf if np.isfinite(a[key])]
-        return float(np.mean(vals)) if vals else float("nan")
-
-    return dict(converged_pct=mean_of("converged_pct"), within=100 * mean_of("within_raw"),
-                keyframes=len(per_kf)), kept
+    fn, kw = peval.rows()[name]
+    frames = fast if name.startswith("fast_motion") else over_table
+    return fn(**kw, device="cuda", frames=frames[:kw["n_frames"]], **hooks)
 
 
 def lifecycle_accuracy(torch, P, over_table, fast):
     """The four keyframe-segment rows of EVAL.json on the card. Returns the
     results and the kept fast_motion_propagated switch."""
+    from rpg_open_remode_tpu_torch import eval as peval
+
     out, kept, bad = {}, None, []
-    for name, row in LIFECYCLE_ROWS.items():
+    for name in LIFECYCLE_ROWS:
         t0 = time.perf_counter()
-        frames = (over_table if row["frames"] == "over_table" else fast)[:row["n"]]
         keep = KEEP_SWITCH if name == "fast_motion_propagated" else None
-        r, k = keyframe_segments(torch, P, frames, CAM_640, row["seg"], row["propagate"],
-                                 keep_switch=keep)
-        kept = k or kept
+        r = segment_row(name, over_table, fast, keep_switch=keep)
+        kept = r.pop("kept", None) or kept
         r["seconds"] = time.perf_counter() - t0
-        out[name] = r
-        ok = (abs(r["converged_pct"] - row["converged_pct"]) <= 1.5
-              and r["within"] >= row["within"] - 1.5)
-        log(f"  {name}: {r['keyframes']} keyframes of {row['seg']} frames, converged per "
-            f"keyframe {r['converged_pct']:.4f} %, within 2.6 % {r['within']:.4f} % (EVAL.json "
-            f"{row['converged_pct']} / {row['within']}; {'ok' if ok else 'OUTSIDE'}), "
-            f"{r['seconds']:.1f} s")
+        ok, line = peval.judge(name, r)
+        out[name] = dict(converged_pct=r["mean_converged_pct_per_kf"],
+                         within=100 * r["mean_within_2p6pct"], keyframes=r["keyframes"],
+                         seconds=r["seconds"], ok=ok)
+        log(f"  {name}: {r['keyframes']} keyframes of {r['updates_per_keyframe'] + 1} frames, "
+            f"per keyframe {line}, {r['seconds']:.1f} s")
         if not ok:
             bad.append(name)
     if bad:
@@ -813,9 +887,8 @@ def profile_lifecycle(torch, P, fast):
             torch.cuda.synchronize()
         time.sleep(FENCE_S)
 
-    row = LIFECYCLE_ROWS["fast_motion_propagated"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        keyframe_segments(torch, P, fast[:row["n"]], CAM_640, row["seg"], True, reseed_wrap=fenced)
+        segment_row("fast_motion_propagated", None, fast, reseed_wrap=fenced)
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.events()
     margin = FENCE_S / 2 * 1e6   # profiler times are in us
@@ -1350,11 +1423,13 @@ def mesh_rank(mesh, io, frames, denoise):
 
 def slab_parity(torch, calls):
     """Each kept kernel call against its plain version, and its time (CUDA
-    graph) beside its bound."""
+    graph) beside its bound, the plain version's time and, for a resample
+    pass, one ``grid_sample`` call's."""
     from rpg_open_remode_tpu_torch.ops import resample_cuda, sweep_cuda
 
     out = []
     for i, kind, args in calls:
+        library_ms = None
         if kind == "sweep":
             got = sweep_cuda.disparity_sweep(*args)
             want = sweep_cuda.disparity_sweep_plain(*args)
@@ -1362,15 +1437,21 @@ def slab_parity(torch, calls):
             wk = sweep_work(torch, args)
             name = "sweep " + ("full" if args[10] else "coarse")
             fn, bnd = (lambda a=args: sweep_cuda.disparity_sweep(*a)), bound(wk["bytes"], wk["flops"])
+            plain = (lambda a=args: sweep_cuda.disparity_sweep_plain(*a))
             shape = tuple(args[2].shape)
         else:
             fn_k = getattr(resample_cuda, f"resample_{kind}")
-            err = max_err(fn_k(*args), getattr(resample_cuda, f"resample_{kind}_plain")(*args))
+            plain_k = getattr(resample_cuda, f"resample_{kind}_plain")
+            err = max_err(fn_k(*args), plain_k(*args))
             name = f"resample_{kind} C={args[0].shape[0]}"
             fn, bnd = (lambda f=fn_k, a=args: f(*a)), bound(*resample_bytes(kind, *args))
+            plain = (lambda f=plain_k, a=args: f(*a))
+            lib, _ = grid_sample_call(torch, kind, *args)
+            library_ms = graph_ms(torch, lib)
             shape = (tuple(args[0].shape), tuple(args[1].shape))
         out.append(dict(frame=i, name=name, shape=str(shape), max_abs_err=err,
-                        ms=graph_ms(torch, fn), bound=bnd))
+                        ms=graph_ms(torch, fn), bound=bnd, plain_ms=cuda_ms(torch, plain, 3, 1),
+                        library_ms=library_ms))
     return out
 
 
@@ -1470,9 +1551,11 @@ def mesh_phase(torch, P, kernels, frames640):
             for c in x["calls"]:
                 c = dict(c, rank=x["rank"])
                 r["calls"].append(c)
+                lib = ("" if c["library_ms"] is None
+                       else f", grid_sample {c['library_ms']:.4f} ms")
                 log(f"    rank {x['rank']} frame {c['frame']} {c['name']} {c['shape']}: max err "
                     f"{c['max_abs_err']:.3g}; {c['ms']:.4f} ms (CUDA graph), bound "
-                    f"{c['bound'][0]:.4f} ms by {c['bound'][1]}")
+                    f"{c['bound'][0]:.4f} ms by {c['bound'][1]}, plain {c['plain_ms']:.4f} ms{lib}")
                 if c["max_abs_err"] != 0.0:
                     bad.append(f"{shape} rank {x['rank']} {c['name']} differs from its plain version")
         if shape == MESH_DENOISE:
@@ -1596,15 +1679,11 @@ GRID_SAMPLE_TOL = 1e-3
 # -- kernel timings ------------------------------------------------------------
 
 
-def kernel_timings(torch, dev, P, run640, run720, calls):
-    """Each kernel's time on frame KEEP_FRAME's own inputs (and the warps' on
-    random coordinates too), beside its plain version and its bound; TV-L1
-    also on the 1280x720 run's final state (the shapes of the tiled Pallas
-    kernel, row 5)."""
-    from rpg_open_remode_tpu_torch.ops import denoise_cuda, resample_cuda, sweep_cuda
+def sweep_timings(torch, calls, what):
+    """The full and coarse sweep passes of ``calls`` (``frame_calls``):
+    CUDA-graph time, plain time, bound and measured lane use."""
+    from rpg_open_remode_tpu_torch.ops import sweep_cuda
 
-    eng = run640["eng"]
-    cfg = eng.cfg
     rows = {}
     for key in ("sweep full", "sweep coarse"):
         args = calls[key]
@@ -1615,9 +1694,18 @@ def kernel_timings(torch, dev, P, run640, run720, calls):
             plain_ms=cuda_ms(torch, lambda: sweep_cuda.disparity_sweep_plain(*args), 3, 1),
             bound=bound(wk["bytes"], wk["flops"]), lanes=lu,
             work=f"{key.split()[1]} pass, frame "
-            f"{KEEP_FRAME if key == 'sweep full' else calls['coarse frame']} of over_table")
+            f"{KEEP_FRAME if key == 'sweep full' else calls['coarse frame']} of {what}")
+    return rows
+
+
+def resample_timings(torch, dev, calls):
+    """Each pass of the three warps in ``calls``, summed: CUDA-graph time on
+    the frame's own coordinates and on random ones, plain time, one
+    ``grid_sample`` call per pass (the library yardstick), bound."""
+    from rpg_open_remode_tpu_torch.ops import resample_cuda
 
     rng = np.random.default_rng(1)
+    rows = {}
     for kind in ("rows", "cols"):
         fn = getattr(resample_cuda, f"resample_{kind}")
         plain = getattr(resample_cuda, f"resample_{kind}_plain")
@@ -1649,23 +1737,23 @@ def kernel_timings(torch, dev, P, run640, run720, calls):
             library_ms=t["library_ms"], library_err=t["library_err"],
             bound=bound(t["bytes"], t["flops"]), per_call=t["per_call"],
             work=f"the 3 calls of frame {KEEP_FRAME} (ref stack, curr, back-warp)")
+    return rows
 
-    g = tvl1_weights(eng.state, cfg)
-    mu = eng.state.mu.contiguous()
-    hh, ww = mu.shape
-    rows["tvl1"] = dict(
+
+def tvl1_timing(torch, eng, work):
+    """TV-L1's 200 iterations on ``eng``'s final state: CUDA-graph time,
+    plain time, bound."""
+    from rpg_open_remode_tpu_torch.ops import denoise_cuda
+
+    g, mu, cfg = tvl1_weights(eng.state, eng.cfg), eng.state.mu.contiguous(), eng.cfg
+    h, w = mu.shape
+    return dict(
         ms=graph_ms(torch, lambda: denoise_cuda.tvl1(mu, g, 0.5, 200, cfg), n=2, reps=5),
         plain_ms=cuda_ms(torch, lambda: denoise_cuda.tvl1_plain(mu, g, 0.5, 200, cfg), 2, 1),
-        bound=bound(4 * 3 * hh * ww, 200 * 28 * hh * ww), work="200 iterations at 640x480")
-    e720 = run720["eng"]
-    g720, mu720 = tvl1_weights(e720.state, e720.cfg), e720.state.mu.contiguous()
-    h7, w7 = mu720.shape
-    rows["tvl1 1280x720"] = dict(
-        ms=graph_ms(torch, lambda: denoise_cuda.tvl1(mu720, g720, 0.5, 200, e720.cfg), n=2, reps=5),
-        plain_ms=cuda_ms(torch, lambda: denoise_cuda.tvl1_plain(mu720, g720, 0.5, 200, e720.cfg),
-                         2, 1),
-        bound=bound(4 * 3 * h7 * w7, 200 * 28 * h7 * w7),
-        work="200 iterations at 1280x720 (the tiled Pallas kernel's shapes)")
+        bound=bound(4 * 3 * h * w, 200 * 28 * h * w), work=work)
+
+
+def log_timings(rows):
     for k, r in rows.items():
         extra = ""
         if "lanes" in r:
@@ -1680,6 +1768,19 @@ def kernel_timings(torch, dev, P, run640, run720, calls):
                      f"image's largest magnitude)")
         log(f"  {k}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound'][0]:.4f} ms by {r['bound'][1]}){extra}; {r['work']}")
+
+
+def kernel_timings(torch, dev, P, run640, run720, calls):
+    """Each kernel's time on frame KEEP_FRAME's own inputs (and the warps' on
+    random coordinates too), beside its plain version and its bound; TV-L1
+    also on the 1280x720 run's final state (the shapes of the tiled Pallas
+    kernel, row 5)."""
+    rows = sweep_timings(torch, calls, "over_table")
+    rows.update(resample_timings(torch, dev, calls))
+    rows["tvl1"] = tvl1_timing(torch, run640["eng"], "200 iterations at 640x480")
+    rows["tvl1 1280x720"] = tvl1_timing(
+        torch, run720["eng"], "200 iterations at 1280x720 (the tiled Pallas kernel's shapes)")
+    log_timings(rows)
     return rows
 
 
@@ -1799,6 +1900,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     import rpg_open_remode_tpu_torch as P
+    from rpg_open_remode_tpu_torch import eval as peval
     from rpg_open_remode_tpu_torch import kernels
 
     dev = torch.device("cuda")
@@ -1817,7 +1919,15 @@ def main() -> int:
     log(f"kernels built and loaded in {kernels.build_seconds:.2f} s")
 
     phase("kernel parity (numpy-seeded, ragged-band and edge-case inputs, main-path shapes)")
-    errs = kernel_parity(torch, dev, P)
+    errs = kernel_parity(torch, dev, P, MAIN_SIZES)
+
+    phase("kernel parity at the live and FHD rows' configurations (752x480; 1920x1080 at "
+          "patch 15 and 17 with 383 planes)")
+    t_phase = time.perf_counter()
+    for k, e in kernel_parity(torch, dev, P, ROW_SIZES).items():
+        errs[k] = max(errs[k], e)
+    launch = launch_figures(ROW_SIZES)
+    log(f"  phase took {time.perf_counter() - t_phase:.1f} s")
 
     phase("main path 640x480 (over_table: 200 frames, one keyframe, denoise)")
     frames640 = make_frames(640, 480, CAM_640, 200)
@@ -1844,8 +1954,16 @@ def main() -> int:
     report_run("1280x720", run720)
     log(f"  beside the JAX hd_1280x720 row {HD_ROW}")
 
+    phase(f"the 1920x1080 configuration ({FHD_FRAMES} frames through Depthmap at "
+          f"for_camera(1443.6); frame {KEEP_FRAME}'s own kernel inputs; kernel timings)")
+    t_phase = time.perf_counter()
+    fhd = fhd_run(torch, dev, P, kernels)
+    for k, e in fhd["errs"].items():
+        errs[k] = max(errs[k], e)
+    log(f"  phase took {time.perf_counter() - t_phase:.1f} s")
+
     phase("keyframe lifecycle accuracy (eval.py's keyframe segments, 640x480, hardened scene)")
-    fast = make_frames(640, 480, CAM_640, LIFECYCLE_ROWS["fast_motion"]["n"], step=FAST_STEP)
+    fast = make_frames(640, 480, CAM_640, 190, step=peval.FAST_STEP)
     life, kept = lifecycle_accuracy(torch, P, frames640, fast)
 
     phase(f"depth propagation (switch {KEEP_SWITCH} of the fast_motion_propagated run)")
@@ -1898,6 +2016,19 @@ def main() -> int:
             t7 = rows["tvl1 1280x720"]
             entry.update(ms_1280x720=t7["ms"], plain_ms_1280x720=t7["plain_ms"],
                          bound_ms_1280x720=t7["bound"][0])
+        # the 1920x1080 run (for_camera(1443.6), patch 15, 383 planes): its
+        # launches, and the kernel timed on its frame-10 inputs (the sweep's
+        # full pass; the 3 warps' passes; TV-L1 on its final state)
+        f = fhd["timings"]["sweep full" if k == "sweep" else k]
+        entry.update(launches_1920x1080=fhd["run"]["launches"][k], ms_1920x1080=f["ms"],
+                     plain_ms_1920x1080=f["plain_ms"], bound_ms_1920x1080=f["bound"][0],
+                     library_ms_1920x1080=f.get("library_ms"))
+        if k == "sweep":
+            c = fhd["timings"]["sweep coarse"]
+            entry.update(ms_coarse_1920x1080=c["ms"], plain_ms_coarse_1920x1080=c["plain_ms"],
+                         bound_ms_coarse_1920x1080=c["bound"][0],
+                         smem_bytes_1920x1080=launch["1920x1080 full"]["smem_bytes"],
+                         blocks_per_sm_1920x1080=launch["1920x1080 full"]["blocks_per_sm"])
         entry["launches_lifecycle"] = cli_out["synthetic"]["launches"][k]
         entry["launches_ring"] = ring["cli"]["launches"][k]
         entry["launches_mesh"] = sum(x[k] for x in mesh["cli"]["launches"])
@@ -1908,6 +2039,8 @@ def main() -> int:
         if slab:
             slow = max(slab, key=lambda c: c["ms"])
             entry.update(ms_slab_slowest=slow["ms"], bound_ms_slab_slowest=slow["bound"][0],
+                         plain_ms_slab_slowest=slow["plain_ms"],
+                         library_ms_slab_slowest=slow["library_ms"],
                          slab_slowest=f"{slow['name']} {slow['shape']}")
         out.append(entry)
     log("  library_ms: one grid_sample call per resample pass; no single PyTorch call computes "
@@ -1926,6 +2059,8 @@ def main() -> int:
                 run640={k: run640[k] for k in keep}, run720={k: run720[k] for k in keep},
                 timings=rows, work=work, profile=prof, lifecycle=life, propagation=prop,
                 profile_lifecycle=prop_run, cli=cli_out, ring=ring, mesh=mesh,
+                launch_figures=launch, fhd=dict(run={k: fhd["run"][k] for k in keep},
+                                                peaks=fhd["peaks"], timings=fhd["timings"]),
                 baseline=base)), f, indent=1)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {

@@ -125,13 +125,16 @@ def _load_frames(args):
     return gen(), (args.width, args.height, args.fx, cx, args.fy, cy)
 
 
-def _make_engine(geom, args):
+def _make_engine(geom, device, propagate=False):
+    """The single-keyframe engine: ``RemodeConfig.for_camera(fx)``, or with
+    ``propagate`` the unscaled ``RemodeConfig(propagate_depth=True)`` (the
+    JAX CLI's ``run --propagate``)."""
     from rpg_open_remode_tpu_torch.config import RemodeConfig
     from rpg_open_remode_tpu_torch.models.depthmap import Depthmap
 
-    cfg = RemodeConfig(propagate_depth=True) if getattr(args, "propagate", False) else None
+    cfg = RemodeConfig(propagate_depth=True) if propagate else None
     width, height, fx, cx, fy, cy = geom
-    return Depthmap(width, height, fx=fx, cx=cx, fy=fy, cy=cy, cfg=cfg, device=args.device)
+    return Depthmap(width, height, fx=fx, cx=cx, fy=fy, cy=cy, cfg=cfg, device=device)
 
 
 def _make_node(geom, args, export):
@@ -157,7 +160,7 @@ def _make_node(geom, args, export):
                                  cfg=cfg, device=args.device)
         return MultiKeyframeNode(engine, on_keyframe=export)
 
-    engine = _make_engine(geom, args)
+    engine = _make_engine(geom, args.device, args.propagate)
     node_cfg = on_conv = None
     if args.conv_every:
         node_cfg = dataclasses.replace(engine.cfg, publish_conv_every_n=args.conv_every)
@@ -380,7 +383,7 @@ def cmd_bench(args):
 
     frames, geom = _load_frames(args)
     frames = list(frames)
-    engine = _make_engine(geom, args)
+    engine = _make_engine(geom, args.device)   # always for_camera(fx), as the JAX bench
 
     _, img0, T0, gt0 = frames[0]
     if gt0 is not None and gt0.ndim == 1:

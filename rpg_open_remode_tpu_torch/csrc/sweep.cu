@@ -60,6 +60,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr float kNeg = -1e30f;
@@ -312,20 +314,38 @@ __global__ void __launch_bounds__(kThreads)
   found[idx] = (best >= threshold && bk >= 0) ? 1 : 0;
 }
 
+// The dynamic shared memory of one block (the layout at the top of
+// sweep_kernel; the curr window as wide as num_planes can make it), opted
+// in past the default 48 KB (patch 15 with 383 planes needs 59,112 B).
+template <int HP, bool kCount>
+cudaError_t block_smem(int num_planes, size_t* bytes) {
+  constexpr int kRw = kTw + 2 * HP, kRh = kTh + 2 * HP;
+  const size_t win = (size_t)kRh * (kTw + num_planes - 1 + 2 * HP);
+  *bytes = sizeof(float) * (2 * kRh * kRw + 2 * kThreads + kChunk) +
+           sizeof(int) * (kThreads + kTh + 2) + kChunk + sizeof(float) * win;
+  if (*bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(sweep_kernel<HP, kCount>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
+}
+
+template <int HP>
+int occupancy(int num_planes, int* bytes, int* blocks) {
+  size_t b = 0;
+  cudaError_t e = block_smem<HP, false>(num_planes, &b);
+  *bytes = (int)b;
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, sweep_kernel<HP, false>,
+                                                            kThreads, b);
+}
+
 template <int HP, bool kCount>
 int launch(const float* curr, const float* xlim, const float* ref, const float* valid,
            const float* dlo, const float* dhi, float* disp, float* ncc,
            unsigned char* found, int h, int w, int pad, int num_planes, float threshold,
            int refine, unsigned long long* lanes, cudaStream_t stream) {
-  constexpr int kRw = kTw + 2 * HP, kRh = kTh + 2 * HP;
-  const size_t win = (size_t)kRh * (kTw + num_planes - 1 + 2 * HP);
-  const size_t bytes = sizeof(float) * (2 * kRh * kRw + 2 * kThreads + kChunk) +
-                       sizeof(int) * (kThreads + kTh + 2) + kChunk + sizeof(float) * win;
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        sweep_kernel<HP, kCount>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
+  size_t bytes = 0;
+  const cudaError_t e = block_smem<HP, kCount>(num_planes, &bytes);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((w + kTw - 1) / kTw, (h + kTh - 1) / kTh);
   sweep_kernel<HP, kCount><<<grid, kThreads, bytes, stream>>>(
       curr, xlim, ref, valid, dlo, dhi, disp, ncc, found, h, w, pad, num_planes, threshold,
@@ -333,29 +353,34 @@ int launch(const float* curr, const float* xlim, const float* ref, const float* 
   return (int)cudaGetLastError();
 }
 
+// f(std::integral_constant<int, HP>) for the patch's half-width HP = 0..8
+// (patches 1..17), each HP its own kernel instance
+template <typename F>
+int with_half_patch(int patch_side, F&& f) {
+  switch (patch_side / 2) {
+    case 0: return f(std::integral_constant<int, 0>{});
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <bool kCount>
 int dispatch(const float* curr, const float* xlim, const float* ref, const float* valid,
              const float* dlo, const float* dhi, float* disp, float* ncc,
              unsigned char* found, int h, int w, int pad, int num_planes, int patch_side,
              float threshold, int refine, unsigned long long* lanes, cudaStream_t s) {
-#define REMODE_SWEEP_CASE(HP)                                                           \
-  case HP:                                                                              \
-    return launch<HP, kCount>(curr, xlim, ref, valid, dlo, dhi, disp, ncc, found, h, w, \
-                              pad, num_planes, threshold, refine, lanes, s);
-  switch (patch_side / 2) {
-    REMODE_SWEEP_CASE(0)
-    REMODE_SWEEP_CASE(1)
-    REMODE_SWEEP_CASE(2)
-    REMODE_SWEEP_CASE(3)
-    REMODE_SWEEP_CASE(4)
-    REMODE_SWEEP_CASE(5)
-    REMODE_SWEEP_CASE(6)
-    REMODE_SWEEP_CASE(7)
-    REMODE_SWEEP_CASE(8)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef REMODE_SWEEP_CASE
+  return with_half_patch(patch_side, [&](auto hp) {
+    return launch<decltype(hp)::value, kCount>(curr, xlim, ref, valid, dlo, dhi, disp, ncc,
+                                               found, h, w, pad, num_planes, threshold,
+                                               refine, lanes, s);
+  });
 }
 
 }  // namespace
@@ -381,4 +406,14 @@ extern "C" int remode_sweep_lanes(const float* curr, const float* xlim, const fl
   return dispatch<true>(curr, xlim, ref, valid, dlo, dhi, disp, ncc, found, h, w, pad,
                         num_planes, patch_side, threshold, refine, lanes,
                         (cudaStream_t)stream);
+}
+
+// The launch figures of remode_sweep at this patch and plane count: the
+// dynamic shared memory of one block, in bytes, and the blocks of 256
+// threads one SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int remode_sweep_occupancy(int patch_side, int num_planes, int* bytes,
+                                      int* blocks) {
+  return with_half_patch(patch_side, [&](auto hp) {
+    return occupancy<decltype(hp)::value>(num_planes, bytes, blocks);
+  });
 }

@@ -47,6 +47,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "remode_sweep": [_P] * 9 + [_I] * 5 + [_F, _I, _P],
     "remode_sweep_lanes": [_P] * 9 + [_I] * 5 + [_F, _I, _P, _P],
+    "remode_sweep_occupancy": [_I, _I, _P, _P],
     "remode_resample_rows": [_P] * 3 + [_I] * 4 + [_P],
     "remode_resample_cols": [_P] * 3 + [_I] * 4 + [_P],
     "remode_tvl1": [_P] * 10 + [_I] * 3 + [_F] * 4 + [_P, _P],

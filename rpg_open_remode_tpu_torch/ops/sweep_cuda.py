@@ -18,6 +18,8 @@ how many of the lanes its loops run are in use.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -167,3 +169,15 @@ def sweep_lanes(*args) -> dict:
     _launch(args, lanes)
     c = [int(v) for v in lanes.cpu()]
     return {"scoring": (c[0], c[1]), "per_pixel": (c[2], c[3])}
+
+
+def sweep_occupancy(patch_side: int, num_planes: int) -> dict:
+    """The kernel's launch figures at this patch and plane count, from the
+    card: the dynamic shared memory of one block (bytes; past 48 KB the
+    kernel opts in to more) and the blocks one SM holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    nbytes, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = kernels.library().remode_sweep_occupancy(
+        patch_side, num_planes, ctypes.byref(nbytes), ctypes.byref(blocks))
+    kernels.check(err, "sweep occupancy")
+    return {"smem_bytes": nbytes.value, "blocks_per_sm": blocks.value}

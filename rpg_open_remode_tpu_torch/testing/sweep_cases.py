@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 
-GROUP_ROWS = 16   # rows of one edge-case group (> 2 * 8, the largest half patch)
+GROUP_ROWS = 24   # rows of one edge-case group: at the largest patch, 17, its
+                  # rows whose patches stay inside it number 24 - 2 * 8 = 8
 EDGE_GROUPS = (
     "tie", "best_first", "best_last", "masked_right", "plane_0_and_last",
     "no_plane", "inf_nan", "xlim_cut", "random",

@@ -51,6 +51,12 @@ SWEEP_INPUTS = {
     "ragged 768x1408": lambda rng, p: (sweep_cases.ragged_bands(rng, 768, 1408, 256, 255), 255, 256),
     "ragged coarse 768x704": lambda rng, p: (sweep_cases.ragged_bands(rng, 768, 704, 128, 127),
                                              127, 128),
+    # 1920x1080 at for_camera(1443.6): patch 15 (17 in its p17 row), a
+    # 1152x2048 grid, pad 384, 383 planes; the coarse pass at half width
+    "ragged 1152x2048": lambda rng, p: (sweep_cases.ragged_bands(rng, 1152, 2048, 384, 383),
+                                        383, 384),
+    "ragged coarse 1152x1024": lambda rng, p: (sweep_cases.ragged_bands(rng, 1152, 1024, 192,
+                                                                        191), 191, 192),
 }
 
 
@@ -60,6 +66,9 @@ SWEEP_INPUTS = {
     ("edge cases", 5, True), ("edge cases", 9, True), ("edge cases", 5, False),
     ("edge cases", 9, False), ("ragged 512x768", 5, True), ("ragged coarse 512x384", 5, False),
     ("ragged 768x1408", 9, True), ("ragged coarse 768x704", 9, False),
+    ("edge cases", 15, True), ("edge cases", 17, True), ("edge cases", 15, False),
+    ("edge cases", 17, False), ("ragged 1152x2048", 15, True), ("ragged 1152x2048", 17, True),
+    ("ragged coarse 1152x1024", 15, False), ("ragged coarse 1152x1024", 17, False),
 ])
 def test_sweep_kernel_matches_plain(dev, inputs, patch_side, refine):
     """The kernel equals the plain version bit for bit: disparity, NCC and
@@ -73,6 +82,18 @@ def test_sweep_kernel_matches_plain(dev, inputs, patch_side, refine):
     assert int(want[2].sum()) > 100
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("patch_side,planes,want", [(5, 127, 24_584), (9, 255, 37_288),
+                                                    (15, 383, 59_112), (17, 383, 63_848)])
+def test_sweep_occupancy(dev, patch_side, planes, want):
+    """The block's dynamic shared memory at the main path's configurations
+    (past 48 KB at patch 15 and 17 with 383 planes, where the kernel opts
+    in), and at least one block of it fits an SM."""
+    occ = sweep_cuda.sweep_occupancy(patch_side, planes)
+    assert occ["smem_bytes"] == want
+    assert occ["blocks_per_sm"] >= 1
 
 
 @pytest.mark.cuda
@@ -103,7 +124,15 @@ def homography_rows(rng, hs, ho, w):
 @pytest.mark.cuda
 @pytest.mark.parametrize("coords", ["random", "homography"])
 @pytest.mark.parametrize("c,hs,w,ho,wo", [(5, 480, 640, 512, 768), (1, 480, 640, 512, 1024),
-                                          (3, 512, 768, 480, 640)])
+                                          (3, 512, 768, 480, 640),
+                                          # 752x480 (rect 512x896): a partial last
+                                          # column block of 32
+                                          (5, 480, 752, 512, 896), (1, 480, 752, 512, 1152),
+                                          (3, 512, 896, 480, 752),
+                                          # 1920x1080 (rect 1152x2048, pad 384)
+                                          (5, 1080, 1920, 1152, 2048),
+                                          (1, 1080, 1920, 1152, 2816),
+                                          (3, 1152, 2048, 1080, 1920)])
 def test_resample_kernels_match_plain(dev, c, hs, w, ho, wo, coords):
     """Both passes equal their plain versions bit for bit at the three
     main-path shapes (ref stack, current frame, back-warp), with row
@@ -123,7 +152,8 @@ def test_resample_kernels_match_plain(dev, c, hs, w, ho, wo, coords):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,w,iters", [(150, 256, 37), (480, 640, 200), (720, 1280, 20)])
+@pytest.mark.parametrize("h,w,iters", [(150, 256, 37), (480, 640, 200), (720, 1280, 20),
+                                        (1080, 1920, 200), (1080, 1920, 37)])
 def test_tvl1_kernel_matches_plain(dev, h, w, iters):
     """Bit for bit, also where the last launch runs fewer iterations than
     the others (37)."""

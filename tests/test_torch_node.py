@@ -222,6 +222,35 @@ def test_cli_bench_synthetic():
     assert 0.0 <= out["converged_percent"] <= 100.0
 
 
+def test_cli_bench_config_is_the_jax_benchs(monkeypatch, capsys):
+    """``bench --propagate`` at fx 962.4 builds the JAX bench's engine
+    config, ``for_camera(fx)`` (patch 9, 255 planes, disp_pad 256):
+    ``--propagate`` changes nothing in a one-keyframe bench, as in the JAX
+    CLI (rpg_open_remode_tpu/cli.py:327)."""
+    import dataclasses
+
+    from rpg_open_remode_tpu import cli as jcli
+    from rpg_open_remode_tpu_torch.models import depthmap as pdepthmap
+
+    seen = []
+    init = pdepthmap.Depthmap.__init__
+
+    def record(self, *args, **kw):
+        init(self, *args, **kw)
+        seen.append(self.cfg)
+
+    monkeypatch.setattr(pdepthmap.Depthmap, "__init__", record)
+    cli.main(["--device", "cpu", "bench", "--synthetic", "--frames", "3", "--width", "96",
+              "--height", "72", "--fx", "962.4", "--fy", "-960.0", "--propagate"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["device"] == "cpu"
+    want = jcli._make_engine((96, 72, 962.4, 47.5, -960.0, 35.5)).cfg
+    assert len(seen) == 1
+    assert dataclasses.asdict(seen[0]) == dataclasses.asdict(want)
+    assert (seen[0].patch_side, seen[0].num_planes, seen[0].disp_pad) == (9, 255, 256)
+    assert not seen[0].propagate_depth
+
+
 @pytest.mark.parametrize("propagate", [False, True])
 def test_cli_run_keyframes(tmp_path, propagate):
     """``run --keyframes 2`` drives the concurrent-keyframe ring: it
