@@ -33,8 +33,12 @@ staged through pinned host memory) over the first 40 frames against single
 engines fed alike, every rank's band-slab sweep and resample calls of frame
 10 held bit for bit against their plain versions and timed, the sharded
 TV-L1 against the single-device one, and the CLI's ``run --mesh 2,1,2
---keyframes 2 --propagate``. Each resample pass is also timed as one
-``grid_sample`` call, the library yardstick.
+--keyframes 2 --propagate``. Then the port's bench, scaling report,
+profile scripts (640x480 and 752x480) and roofline, each through its
+``main()`` at its defaults in a process of its own with the launch counts
+zeroed before and read after, the bench's accuracy held to the JAX engine's figures for the same
+sequence. Each resample pass is also timed as one ``grid_sample`` call, the
+library yardstick.
 
 ``--baseline DIR`` also builds the kernels of another checkout's
 ``rpg_open_remode_tpu_torch/csrc`` (for example the parent commit, unpacked
@@ -136,48 +140,6 @@ def cuda_ms(torch, fn, reps, warmup=2):
         events.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in events]))
-
-
-def graph_ms(torch, fn, n=20, reps=7):
-    """Device milliseconds per call of a kernel wrapper ``fn``: ``n`` calls
-    captured in one CUDA graph, replayed ``reps`` times between CUDA events;
-    the median replay over ``n``. The graph keeps the host's launch cost out
-    of the time; the inputs stay in L2 from one call to the next, as a
-    frame's freshly written tensors do on the main path."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / n)
-    del graph
-    return float(np.median(times))
-
-
-def bound(nbytes, flops):
-    """The least ms the card needs for ``nbytes`` and ``flops`` at its
-    data-sheet peaks (``ops/accounting``: H100 SXM HBM, fp32 outside the
-    tensor cores), and which of the two bounds it."""
-    from rpg_open_remode_tpu_torch.ops.accounting import PEAK_FP32_TFLOPS, PEAK_HBM_GBPS
-
-    t_b = nbytes / (PEAK_HBM_GBPS * 1e9) * 1e3
-    t_f = flops / (PEAK_FP32_TFLOPS * 1e12) * 1e3
-    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
 def max_err(got, want):
@@ -621,7 +583,8 @@ def fhd_run(torch, dev, P, kernels):
 
 def sweep_work(torch, args):
     """What one sweep call's data needs (``ops/accounting.call_work``: the
-    pairs the kernel scores, its flops and bytes), and ``slots_pixel_model``:
+    pairs the kernel scores, the ZNCC's operations on them, which the bound
+    takes, the kernel's own count and the bytes), and ``slots_pixel_model``:
     the lane-slots that a one-thread-per-pixel loop (the sweep before its
     tile-balanced design) takes by a model of its schedule, not a
     measurement (a warp of 32 consecutive x runs as long as its longest
@@ -664,6 +627,8 @@ def share(pair):
 def run_work(torch, calls):
     """Sum, over the run's kept calls, each sweep pass's admitted pairs,
     bound and measured lane use, and each warp pass's bound."""
+    from rpg_open_remode_tpu_torch.ops.accounting import bound_ms
+
     tot = {k: dict(calls=0, pairs=0.0, bound_ms=0.0, busy_frames=[], scoring=[0, 0],
                    per_pixel=[0, 0], pixel_loop_model=[0.0, 0.0])
            for k in ("sweep full", "sweep coarse")}
@@ -674,14 +639,14 @@ def run_work(torch, calls):
             lu = lane_use(torch, x)
             wk = lu["work"]
             t["pairs"] += wk["pairs"]
-            t["bound_ms"] += bound(wk["bytes"], wk["flops"])[0]
+            t["bound_ms"] += bound_ms(wk["bytes"], wk["flops"])[0]
             for f in ("scoring", "per_pixel", "pixel_loop_model"):
                 t[f] = [a + b for a, b in zip(t[f], lu[f])]
             if wk["pixels"] > 1000:
                 t["busy_frames"].append(i)
         else:
             t = tot[kind]
-            t["bound_ms"] += bound(*x)[0]
+            t["bound_ms"] += bound_ms(*x)[0]
         t["calls"] += 1
     for key in ("sweep full", "sweep coarse"):
         t = tot[key]
@@ -715,22 +680,17 @@ def profile_run(torch, P, frames, cam, label, wall_ms, account=False):
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng, _, _ = replay(torch, P, frames, cam, hook=keep if account else None)
+    from rpg_open_remode_tpu_torch.utils.profiling import device_busy_ms
+
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
-    if not spans:
+    busy = device_busy_ms(prof)
+    if busy is None:
         raise AssertionError("the profiler recorded no device activity")
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    span = spans[-1][1] - spans[0][0]
-    out = dict(busy_ms=busy / 1e3, span_ms=span / 1e3, wall_ms=wall_ms,
-               busy_share_span=busy / span, busy_share_wall=busy / 1e3 / wall_ms, kernels={})
+    span = (max(e.time_range.end for e in dev_events)
+            - min(e.time_range.start for e in dev_events)) / 1e3
+    out = dict(busy_ms=busy, span_ms=span, wall_ms=wall_ms,
+               busy_share_span=busy / span, busy_share_wall=busy / wall_ms, kernels={})
     for k, sym in KERNEL_SYMBOLS.items():
         evs = [e for e in dev_events if sym in e.name]
         out["kernels"][k] = dict(ms=sum(e.time_range.end - e.time_range.start for e in evs) / 1e3,
@@ -807,6 +767,8 @@ def propagation(torch, P, kept):
     from rpg_open_remode_tpu_torch.models import depthmap
     from rpg_open_remode_tpu_torch.models.state import SceneParams
     from rpg_open_remode_tpu_torch.ops import propagate, resample_cuda
+    from rpg_open_remode_tpu_torch.ops.accounting import bound_ms
+    from rpg_open_remode_tpu_torch.utils.profiling import graph_ms
 
     eng = kept["eng"]
     img = eng.input_image(kept["img"])
@@ -839,10 +801,10 @@ def propagation(torch, P, kept):
         if lib_err > GRID_SAMPLE_TOL:
             raise AssertionError(f"grid_sample is no resample_{kind}: {lib_err:.3g}")
         out[f"resample_{kind}"] = dict(
-            calls=len(args), max_abs_err=err, bound=bound(nb, nf),
-            ms=graph_ms(torch, lambda: [fn(*a) for a in args], n=2, reps=5),
+            calls=len(args), max_abs_err=err, bound=bound_ms(nb, nf),
+            ms=graph_ms(lambda: [fn(*a) for a in args], n=2, reps=5),
             plain_ms=cuda_ms(torch, lambda: [plain(*a) for a in args], 3, 1),
-            library_ms=graph_ms(torch, lambda: [f() for f, _ in libs], n=2, reps=5),
+            library_ms=graph_ms(lambda: [f() for f, _ in libs], n=2, reps=5),
             library_err=lib_err)
         del libs
     out["reseed_ms"] = cuda_ms(torch, reseed, 5, 1)
@@ -1426,6 +1388,8 @@ def slab_parity(torch, calls):
     graph) beside its bound, the plain version's time and, for a resample
     pass, one ``grid_sample`` call's."""
     from rpg_open_remode_tpu_torch.ops import resample_cuda, sweep_cuda
+    from rpg_open_remode_tpu_torch.ops.accounting import bound_ms
+    from rpg_open_remode_tpu_torch.utils.profiling import graph_ms
 
     out = []
     for i, kind, args in calls:
@@ -1436,7 +1400,8 @@ def slab_parity(torch, calls):
             err = max(max_err(g, x) for g, x in zip(got, want))
             wk = sweep_work(torch, args)
             name = "sweep " + ("full" if args[10] else "coarse")
-            fn, bnd = (lambda a=args: sweep_cuda.disparity_sweep(*a)), bound(wk["bytes"], wk["flops"])
+            fn = (lambda a=args: sweep_cuda.disparity_sweep(*a))
+            bnd = bound_ms(wk["bytes"], wk["flops"])
             plain = (lambda a=args: sweep_cuda.disparity_sweep_plain(*a))
             shape = tuple(args[2].shape)
         else:
@@ -1444,13 +1409,13 @@ def slab_parity(torch, calls):
             plain_k = getattr(resample_cuda, f"resample_{kind}_plain")
             err = max_err(fn_k(*args), plain_k(*args))
             name = f"resample_{kind} C={args[0].shape[0]}"
-            fn, bnd = (lambda f=fn_k, a=args: f(*a)), bound(*resample_bytes(kind, *args))
+            fn, bnd = (lambda f=fn_k, a=args: f(*a)), bound_ms(*resample_bytes(kind, *args))
             plain = (lambda f=plain_k, a=args: f(*a))
             lib, _ = grid_sample_call(torch, kind, *args)
-            library_ms = graph_ms(torch, lib)
+            library_ms = graph_ms(lib)
             shape = (tuple(args[0].shape), tuple(args[1].shape))
         out.append(dict(frame=i, name=name, shape=str(shape), max_abs_err=err,
-                        ms=graph_ms(torch, fn), bound=bnd, plain_ms=cuda_ms(torch, plain, 3, 1),
+                        ms=graph_ms(fn), bound=bnd, plain_ms=cuda_ms(torch, plain, 3, 1),
                         library_ms=library_ms))
     return out
 
@@ -1676,6 +1641,126 @@ def grid_sample_call(torch, kind, img, coord):
 GRID_SAMPLE_TOL = 1e-3
 
 
+# -- the port's bench, scaling, profile and roofline scripts -----------------
+
+
+# The JAX engine's figures for the bench's 60-frame 640x480 sequence: the JAX
+# package on the CPU (JAX_PLATFORMS=cpu), following bench.py:140-194 step for
+# step (the port on the CPU gives 73.7542 % and 0.995745). The port's bench
+# line is held within BENCH_CONVERGED points and BENCH_WITHIN of them.
+JAX_BENCH = dict(converged_percent=73.75390625, within_2p6pct_range=0.9957541090690818)
+BENCH_CONVERGED, BENCH_WITHIN = 0.1, 0.002
+PROFILE_SIZES = ("640x480", "752x480")
+# each script's module, and the kernels its path launches (the profile
+# scripts and the scaling report run no denoise; the roofline times the
+# sweep alone)
+SCRIPTS = {
+    "bench": ("rpg_open_remode_tpu_torch.bench", []),
+    "bench_scaling": ("rpg_open_remode_tpu_torch.bench_scaling", []),
+    "profile_update": ("rpg_open_remode_tpu_torch.scripts.profile_update", list(PROFILE_SIZES)),
+    "profile_match": ("rpg_open_remode_tpu_torch.scripts.profile_match", list(PROFILE_SIZES)),
+    "roofline": ("rpg_open_remode_tpu_torch.scripts.roofline", []),
+}
+SCRIPT_KERNELS = {
+    "bench": ("sweep", "resample_rows", "resample_cols", "tvl1"),
+    "bench_scaling": ("sweep", "resample_rows", "resample_cols"),
+    "profile_update": ("sweep", "resample_rows", "resample_cols"),
+    "profile_match": ("sweep", "resample_rows", "resample_cols"),
+    "roofline": ("sweep",),
+}
+SCRIPT_TIMEOUT_S = 600
+
+
+def positive(x) -> bool:
+    return isinstance(x, (int, float)) and not isinstance(x, bool) and np.isfinite(x) and x > 0
+
+
+def run_script(torch, kernels, name, path):
+    """``--script NAME``: the script's ``main()`` at its defaults in this
+    process, with the launch counts zeroed just before and read just after.
+    Writes its exit code, launches, seconds and JSON record to ``path``."""
+    import importlib
+
+    module, argv = SCRIPTS[name]
+    main = importlib.import_module(module).main
+    line = path + ".line"
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = main(argv + ["--json", line])
+    torch.cuda.synchronize()
+    out = dict(rc=rc, launches=dict(kernels.LAUNCHES), seconds=time.perf_counter() - t0)
+    with open(line) as f:
+        out["record"] = json.load(f)
+    with open(path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def scripts_phase():
+    """Each script through its ``main()`` at its full defaults (the bench,
+    the scaling report, both profile scripts at PROFILE_SIZES, the roofline
+    at its three points), each in a process of its own as a user starts it
+    (``run_script``: every kernel of its path must have launched). A fresh
+    process also keeps the profile scripts' busy column readable:
+    ``torch.profiler`` loses the last device records of its sessions in a
+    process that has run for some minutes. Held: every fps and ms of the
+    bench and scaling lines finite and > 0, the FHD point present, no
+    ``error`` in the bench line, its accuracy within BENCH_CONVERGED /
+    BENCH_WITHIN of JAX_BENCH; every profile row's device span, wall and
+    device busy time and every roofline point's sweep time finite and > 0."""
+    out, bad = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (module, argv) in SCRIPTS.items():
+            path = os.path.join(tmp, f"{name}.json")
+            log(f"  python -m {module} {' '.join(argv + ['--json', '...'])} (a process of "
+                f"its own)")
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                                   "--script", name, "--script-out", path],
+                                  cwd=Path(__file__).resolve().parent, timeout=SCRIPT_TIMEOUT_S)
+            process_s = time.perf_counter() - t0
+            if proc.returncode != 0 or not os.path.exists(path):
+                raise AssertionError(f"{name}: its process exited {proc.returncode}")
+            with open(path) as f:
+                res = json.load(f)
+            missing = [k for k in SCRIPT_KERNELS[name] if res["launches"][k] <= 0]
+            log(f"  {name}: exit {res['rc']}, {res['seconds']:.1f} s in main() "
+                f"({process_s:.1f} s the process), launches {res['launches']}")
+            if res["rc"] != 0 or missing:
+                bad.append(f"{name}: exit {res['rc']}, kernels not launched {missing}")
+            out[name] = dict(res, process_seconds=process_s)
+
+    line = out["bench"]["record"]
+    timed = [k for k in line if k.endswith(("_fps", "_ms"))] + ["value"]
+    bad += [f"bench {k} = {line[k]}" for k in timed if not positive(line[k])]
+    if line.get("fhd_1080p_fps") is None or line.get("fhd_1080p_denoise_ms") is None:
+        bad.append("bench: no FHD point")
+    if '"error"' in json.dumps(line):
+        bad.append("bench: an error in the line")
+    dc = line["converged_percent"] - JAX_BENCH["converged_percent"]
+    dw = line["within_2p6pct_range"] - JAX_BENCH["within_2p6pct_range"]
+    ok = abs(dc) <= BENCH_CONVERGED and abs(dw) <= BENCH_WITHIN
+    log(f"  bench accuracy: converged {line['converged_percent']} % (JAX engine "
+        f"{JAX_BENCH['converged_percent']:.4f}), within 2.6 % {line['within_2p6pct_range']} "
+        f"(JAX {JAX_BENCH['within_2p6pct_range']:.4f}): {'ok' if ok else 'OUTSIDE'}")
+    if not ok:
+        bad.append("bench accuracy outside the JAX engine's figures")
+    scaling = out["bench_scaling"]["record"]
+    bad += [f"scaling {k} = {v}" for k, v in scaling.items()
+            if k not in ("metric", "backend", "device_name", "power_limit_w") and not positive(v)]
+    for name in ("profile_update", "profile_match"):
+        for size, rows in out[name]["record"]["points"].items():
+            bad += [f"{name} {size} {r['phase']} {c} = {r[c]}" for r in rows
+                    for c in ("device", "wall", "busy") if not positive(r[c])]
+    for pt in out["roofline"]["record"]["points"]:
+        if not positive(pt["sweep_ms_measured"]):
+            bad.append(f"roofline {pt['point']}: sweep {pt['sweep_ms_measured']}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
 # -- kernel timings ------------------------------------------------------------
 
 
@@ -1683,6 +1768,8 @@ def sweep_timings(torch, calls, what):
     """The full and coarse sweep passes of ``calls`` (``frame_calls``):
     CUDA-graph time, plain time, bound and measured lane use."""
     from rpg_open_remode_tpu_torch.ops import sweep_cuda
+    from rpg_open_remode_tpu_torch.ops.accounting import bound_ms
+    from rpg_open_remode_tpu_torch.utils.profiling import graph_ms
 
     rows = {}
     for key in ("sweep full", "sweep coarse"):
@@ -1690,9 +1777,9 @@ def sweep_timings(torch, calls, what):
         lu = lane_use(torch, args)
         wk = lu["work"]
         rows[key] = dict(
-            ms=graph_ms(torch, lambda: sweep_cuda.disparity_sweep(*args)),
+            ms=graph_ms(lambda: sweep_cuda.disparity_sweep(*args)),
             plain_ms=cuda_ms(torch, lambda: sweep_cuda.disparity_sweep_plain(*args), 3, 1),
-            bound=bound(wk["bytes"], wk["flops"]), lanes=lu,
+            bound=bound_ms(wk["bytes"], wk["flops"]), lanes=lu,
             work=f"{key.split()[1]} pass, frame "
             f"{KEEP_FRAME if key == 'sweep full' else calls['coarse frame']} of {what}")
     return rows
@@ -1703,6 +1790,8 @@ def resample_timings(torch, dev, calls):
     the frame's own coordinates and on random ones, plain time, one
     ``grid_sample`` call per pass (the library yardstick), bound."""
     from rpg_open_remode_tpu_torch.ops import resample_cuda
+    from rpg_open_remode_tpu_torch.ops.accounting import bound_ms
+    from rpg_open_remode_tpu_torch.utils.profiling import graph_ms
 
     rng = np.random.default_rng(1)
     rows = {}
@@ -1716,13 +1805,13 @@ def resample_timings(torch, dev, calls):
             n = img.shape[-2] if kind == "rows" else img.shape[-1]
             rand = torch.tensor(rng.uniform(0, n - 1, tuple(coord.shape)).astype(np.float32),
                                 device=dev)
-            ms = graph_ms(torch, lambda: fn(img, coord))
-            ms_r = graph_ms(torch, lambda: fn(img, rand))
+            ms = graph_ms(lambda: fn(img, coord))
+            ms_r = graph_ms(lambda: fn(img, rand))
             lib, lib_err = grid_sample_call(torch, kind, img, coord)
-            lib_ms = graph_ms(torch, lib)
+            lib_ms = graph_ms(lib)
             nb, nf = resample_bytes(kind, img, coord)
             t["per_call"][lab] = dict(ms=ms, ms_random=ms_r, library_ms=lib_ms,
-                                      bound_ms=bound(nb, nf)[0])
+                                      bound_ms=bound_ms(nb, nf)[0])
             t["ms"] += ms
             t["ms_random"] += ms_r
             t["library_ms"] += lib_ms
@@ -1735,7 +1824,7 @@ def resample_timings(torch, dev, calls):
         rows[f"resample_{kind}"] = dict(
             ms=t["ms"], ms_random=t["ms_random"], plain_ms=t["plain_ms"],
             library_ms=t["library_ms"], library_err=t["library_err"],
-            bound=bound(t["bytes"], t["flops"]), per_call=t["per_call"],
+            bound=bound_ms(t["bytes"], t["flops"]), per_call=t["per_call"],
             work=f"the 3 calls of frame {KEEP_FRAME} (ref stack, curr, back-warp)")
     return rows
 
@@ -1744,13 +1833,15 @@ def tvl1_timing(torch, eng, work):
     """TV-L1's 200 iterations on ``eng``'s final state: CUDA-graph time,
     plain time, bound."""
     from rpg_open_remode_tpu_torch.ops import denoise_cuda
+    from rpg_open_remode_tpu_torch.ops.accounting import bound_ms
+    from rpg_open_remode_tpu_torch.utils.profiling import graph_ms
 
     g, mu, cfg = tvl1_weights(eng.state, eng.cfg), eng.state.mu.contiguous(), eng.cfg
     h, w = mu.shape
     return dict(
-        ms=graph_ms(torch, lambda: denoise_cuda.tvl1(mu, g, 0.5, 200, cfg), n=2, reps=5),
+        ms=graph_ms(lambda: denoise_cuda.tvl1(mu, g, 0.5, 200, cfg), n=2, reps=5),
         plain_ms=cuda_ms(torch, lambda: denoise_cuda.tvl1_plain(mu, g, 0.5, 200, cfg), 2, 1),
-        bound=bound(4 * 3 * h * w, 200 * 28 * h * w), work=work)
+        bound=bound_ms(4 * 3 * h * w, 200 * 28 * h * w), work=work)
 
 
 def log_timings(rows):
@@ -1831,6 +1922,7 @@ def baseline_compare(torch, P, kernels, baseline_dir, calls, frames, run640, run
     profile a replay with each. The profiled replays' depth maps must agree
     bit for bit, since both versions equal the plain ones."""
     from rpg_open_remode_tpu_torch.ops import denoise_cuda, resample_cuda, sweep_cuda
+    from rpg_open_remode_tpu_torch.utils.profiling import graph_ms
 
     csrc = Path(baseline_dir) / "rpg_open_remode_tpu_torch" / "csrc"
     with tempfile.TemporaryDirectory() as tmp:
@@ -1861,7 +1953,7 @@ def baseline_compare(torch, P, kernels, baseline_dir, calls, frames, run640, run
             t = {"old": [], "new": []}
             for which in ("old", "new", "new", "old"):
                 with with_library(kernels, libs[which]):
-                    t[which].append(graph_ms(torch, fn, *((2, 5) if "tvl1" in name else ())))
+                    t[which].append(graph_ms(fn, *((2, 5) if "tvl1" in name else ())))
             out[name] = {k: float(np.mean(v)) for k, v in t.items()}
             log(f"  {name}: old {out[name]['old']:.4f} ms, new {out[name]['new']:.4f} ms "
                 f"(each the mean of two turns: {t['old']} / {t['new']})")
@@ -1892,6 +1984,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write the measurements to this JSON file")
     parser.add_argument("--baseline", help="a checkout whose kernels to time beside these")
+    parser.add_argument("--script", choices=SCRIPTS, help=argparse.SUPPRESS)
+    parser.add_argument("--script-out", help=argparse.SUPPRESS)
     opts = parser.parse_args()
 
     import torch
@@ -1903,6 +1997,8 @@ def main() -> int:
     from rpg_open_remode_tpu_torch import eval as peval
     from rpg_open_remode_tpu_torch import kernels
 
+    if opts.script:
+        return run_script(torch, kernels, opts.script, opts.script_out)
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -1984,6 +2080,12 @@ def main() -> int:
           f"{MESH_FRAMES} frames, band slab kernels, sharded TV-L1, the CLI's --mesh 2,1,2 run)")
     mesh = mesh_phase(torch, P, kernels, frames640)
 
+    phase("the port's bench, scaling, profile and roofline scripts (each main() at its "
+          "defaults, in a process of its own)")
+    t_phase = time.perf_counter()
+    scripts = scripts_phase()
+    log(f"  phase took {time.perf_counter() - t_phase:.1f} s")
+
     phase(f"kernel timings (frame {KEEP_FRAME} of the 640x480 run; TV-L1 also at 1280x720)")
     rows = kernel_timings(torch, dev, P, run640, run720, calls)
 
@@ -2061,7 +2163,7 @@ def main() -> int:
                 profile_lifecycle=prop_run, cli=cli_out, ring=ring, mesh=mesh,
                 launch_figures=launch, fhd=dict(run={k: fhd["run"][k] for k in keep},
                                                 peaks=fhd["peaks"], timings=fhd["timings"]),
-                baseline=base)), f, indent=1)
+                scripts=scripts, baseline=base)), f, indent=1)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

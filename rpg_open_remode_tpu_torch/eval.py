@@ -38,6 +38,8 @@ import time
 import numpy as np
 import torch
 
+from rpg_open_remode_tpu_torch.utils.profiling import FrameClock
+
 HARDEN = dict(noise_sigma=0.01, vignette=0.15, n_textureless=3, n_spheres=2)
 
 CAM_640 = dict(fx=481.2, fy=-480.0, cx=319.5, cy=239.5)
@@ -136,34 +138,6 @@ def _generate(width, height, cam, n_frames, step, seed):
                               cam=cam, seed=seed, step=step, **HARDEN)
 
 
-class _FrameClock:
-    """Milliseconds of each timed call: CUDA events around it on a CUDA
-    device (read once, at the end), the host clock on the CPU."""
-
-    def __init__(self, device):
-        self.cuda = torch.device(device).type == "cuda"
-        self.spans = []
-
-    def __call__(self, fn):
-        if self.cuda:
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            self.spans.append((s, e))
-        else:
-            t0 = time.perf_counter()
-            fn()
-            self.spans.append(1e3 * (time.perf_counter() - t0))
-
-    def ms(self) -> np.ndarray:
-        if self.cuda:
-            torch.cuda.synchronize()
-            return np.array([s.elapsed_time(e) for s, e in self.spans])
-        return np.array(self.spans)
-
-
 def eval_fixed_keyframe(width, height, cam, n_frames, step, seed=1,
                         curve=False, sweep=False, cfg=None,
                         pose_noise=None, device=None, frames=None):
@@ -186,7 +160,7 @@ def eval_fixed_keyframe(width, height, cam, n_frames, step, seed=1,
                    cfg=cfg, device=device)
     eng.set_reference_image(f0.image, _Tcw(f0), d0.min(), d0.max())
     nrng = np.random.default_rng(seed + 1000) if pose_noise else None
-    clock = _FrameClock(eng.device)
+    clock = FrameClock(eng.device)
     conv_curve = []
     for i, fr in enumerate(frames[1:], 1):
         T = _Tcw(fr)
@@ -335,7 +309,7 @@ def eval_real_dataset(
     entries = list(ds)[1:]
     images = [ds.read_image(e) for e in entries]   # decode off the clock
     BLOCK = 10
-    clock = _FrameClock(eng.device)
+    clock = FrameClock(eng.device)
     sizes = []
     i = 0
     while i < len(entries):

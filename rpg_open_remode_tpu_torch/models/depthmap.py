@@ -135,6 +135,14 @@ def undistort_map(height: int, width: int, cam: PinholeCamera, k1, k2, p1, p2):
     return cam.fx * xd + cam.cx, cam.fy * yd + cam.cy
 
 
+def to_device(x, device, pose: bool = False) -> torch.Tensor:
+    """``x`` (an array, or a tensor on any device, e.g. a frame staged on
+    the card) as a tensor on ``device``; a pose as float32."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device, torch.float32) if pose else x.to(device)
+    return torch.as_tensor(np.asarray(x, np.float32) if pose else np.asarray(x)).to(device)
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means CUDA. Raises when CUDA is asked for and absent: the
     engine never drops to the CPU unless the caller passes ``"cpu"``."""
@@ -166,10 +174,10 @@ class Depthmap:
         self._undistort_grid = None
 
     def _tensor(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x)).to(self.device)
+        return to_device(x, self.device)
 
     def _pose(self, T) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(T, np.float32)).to(self.device)
+        return to_device(T, self.device, pose=True)
 
     def init_undistortion_map(self, k1, k2, p1, p2) -> None:
         self._undistort_grid = undistort_map(

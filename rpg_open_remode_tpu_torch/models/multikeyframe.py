@@ -23,7 +23,7 @@ import torch
 from rpg_open_remode_tpu_torch.config import ConvergenceState, RemodeConfig
 from rpg_open_remode_tpu_torch.models.depthmap import (
     PACKED_STATS_KEYS, _set_reference_propagated, prep_image, resolve_device,
-    set_reference, update_step,
+    set_reference, to_device, update_step,
 )
 from rpg_open_remode_tpu_torch.models.node import LifecycleNode, _fetch
 from rpg_open_remode_tpu_torch.models.state import (
@@ -48,10 +48,10 @@ class BatchedDepthmap:
         self._active = [False] * n_keyframes
 
     def _image(self, img) -> torch.Tensor:
-        return prep_image(torch.as_tensor(np.asarray(img)).to(self.device))
+        return prep_image(to_device(img, self.device))
 
     def _pose(self, T) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(T, np.float32)).to(self.device)
+        return to_device(T, self.device, pose=True)
 
     def seed_keyframe(self, slot: int, img, T_curr_world, min_depth, max_depth) -> None:
         """New keyframe in ``slot``: warm-started from the slot's own

@@ -24,23 +24,24 @@ and has no MXU figures:
 the exact kernel inputs with no instrumentation on the hot path (the coarse
 pass runs inside ``prepare_sweep``, as on the main path).
 
-FLOPs: ``alg`` is the JAX record's algorithmic count, a minimal separable
-ZNCC (three box sums at 4 hp adds each, the curr x ref product, ~10 ZNCC
-ops) = 12 hp + 11 per scored pair; ``exec`` is what the CUDA kernel does,
+FLOPs: ``flops`` is the JAX record's algorithmic count, what the ZNCC
+function needs: a minimal separable ZNCC (three box sums at 4 hp adds each,
+the curr x ref product, ~10 ZNCC ops) = 12 hp + 11 per scored pair. The
+bound (``bound_ms``) takes it. ``flops_exec`` is what the CUDA kernel does,
 three direct patch sums (5 operations a tap) and ~12 of ZNCC and masks per
-pair, plus the template statistics (4 a tap) per swept pixel. The shares of
-peak are taken against the card's fp32 rate outside the tensor cores.
+pair, plus the template statistics (4 a tap) per swept pixel: more than the
+function needs, so it bounds nothing. The shares of peak are taken against
+the card's fp32 rate outside the tensor cores.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from rpg_open_remode_tpu_torch.config import RemodeConfig
-from rpg_open_remode_tpu_torch.models.depthmap import prep_image
+from rpg_open_remode_tpu_torch.models.depthmap import prep_image, to_device
 from rpg_open_remode_tpu_torch.models.state import SeedState
 from rpg_open_remode_tpu_torch.ops import rect_match, seed_check
 from rpg_open_remode_tpu_torch.ops.sweep_cuda import box_zero
@@ -52,12 +53,22 @@ PEAK_FP32_TFLOPS = 67.0
 PEAK_HBM_GBPS = 3350.0
 
 
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least milliseconds the card needs to move ``nbytes`` and do
+    ``flops`` at its data-sheet peaks, and which of the two bounds it
+    (``"bytes"`` or ``"operations"``)."""
+    t_b = nbytes / (PEAK_HBM_GBPS * 1e9) * 1e3
+    t_f = flops / (PEAK_FP32_TFLOPS * 1e12) * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
 def call_work(curr_pad, xlim, ref_img, valid, disp_lo, disp_hi, ncc_threshold,
               num_planes: int, pad: int, patch_side: int, subplane_refine) -> dict:
     """What one ``disparity_sweep`` call (its arguments) needs. ``pairs``,
     ``pixels`` (with at least one pair), ``band_pairs``, ``band`` (each
-    guarded pixel's band-plane count, a tensor), ``flops`` (the kernel's
-    exec count) and ``bytes`` (each input read once, each output written
+    guarded pixel's band-plane count, a tensor), ``flops`` (the ZNCC's
+    algorithmic count, 12 hp + 11 a pair), ``flops_exec`` (the kernel's own
+    count) and ``bytes`` (each input read once, each output written
     once)."""
     area = patch_side * patch_side
     h, w = ref_img.shape
@@ -85,7 +96,8 @@ def call_work(curr_pad, xlim, ref_img, valid, disp_lo, disp_hi, ncc_threshold,
     n_pair = torch.where(swept & (k0 <= k1), k1 - k0 + 1, zero)
     pairs = float(n_pair.sum())
     return dict(pairs=pairs, pixels=float((n_pair > 0).sum()), band_pairs=float(band.sum()),
-                band=band, flops=pairs * (5 * area + 12) + float(swept.sum()) * 4 * area,
+                band=band, flops=pairs * (12.0 * (patch_side // 2) + 11.0),
+                flops_exec=pairs * (5 * area + 12) + float(swept.sum()) * 4 * area,
                 bytes=4 * (curr_pad.numel() + xlim.numel() + 6 * h * w) + h * w)
 
 
@@ -106,7 +118,8 @@ def sweep_counts(state: SeedState, curr_img, T_curr_world, cam: PinholeCamera,
                      p["disp_hi"], cfg.ncc_threshold, cfg.num_planes, cfg.disp_pad,
                      cfg.patch_side, cfg.subplane_refine)
     fired = p["coarse_args"] is not None
-    coarse = call_work(*p["coarse_args"]) if fired else dict(pairs=0.0, flops=0.0, bytes=0.0)
+    coarse = (call_work(*p["coarse_args"]) if fired
+              else dict(pairs=0.0, flops=0.0, flops_exec=0.0, bytes=0.0))
     lo, hi = p["disp_lo"], p["disp_hi"]
     ideal = torch.where(torch.isfinite(lo) & (hi >= lo), hi - lo + 1.0, torch.zeros_like(lo))
     rect_h, rect_w = p["ref_img_r"].shape
@@ -114,7 +127,8 @@ def sweep_counts(state: SeedState, curr_img, T_curr_world, cam: PinholeCamera,
         pairs=fine["pairs"], pixels=fine["pixels"], band_pairs=fine["band_pairs"],
         pixel_ideal_plane_px=float(ideal.sum()), pairs_full=float(cfg.num_planes * rect_h * rect_w),
         coarse_pairs=coarse["pairs"], coarse_fired=fired,
-        flops=fine["flops"] + coarse["flops"], bytes=fine["bytes"] + coarse["bytes"],
+        flops=fine["flops"] + coarse["flops"], flops_exec=fine["flops_exec"] + coarse["flops_exec"],
+        bytes=fine["bytes"] + coarse["bytes"],
         shape=(rect_h, rect_w),
     )
 
@@ -125,10 +139,9 @@ def frame_accounting(eng, img, T_curr_world, frame_s: float) -> dict:
     the card's fp32 peak. ``mfu_pct`` takes the algorithmic FLOPs over the
     whole frame time (warps, classify and fusion included), as the JAX
     record does; ``exec_pct_of_peak`` the kernel's own."""
-    T = torch.as_tensor(np.asarray(T_curr_world, np.float32)).to(eng.device)
+    T = to_device(T_curr_world, eng.device, pose=True)
     c = sweep_counts(eng.state, eng.input_image(img), T, eng.cam, eng.cfg)
-    hp = eng.cfg.patch_side // 2
-    alg = (c["pairs"] + c["coarse_pairs"]) * (12.0 * hp + 11.0)
+    alg = c["flops"]
     peak = max(frame_s, 1e-9) * PEAK_FP32_TFLOPS * 1e12
     return {
         "pairs_swept": c["pairs"],
@@ -141,9 +154,8 @@ def frame_accounting(eng, img, T_curr_world, frame_s: float) -> dict:
         "pairs_over_ideal": round(c["pairs"] / max(c["pixel_ideal_plane_px"], 1.0), 4),
         "est_tflops": round(alg / 1e12, 5),
         "sweep_gflops_alg": round(alg / 1e9, 4),
-        "sweep_gflops_exec": round(c["flops"] / 1e9, 4),
-        "sweep_bound_ms": 1e3 * max(c["bytes"] / (PEAK_HBM_GBPS * 1e9),
-                                    c["flops"] / (PEAK_FP32_TFLOPS * 1e12)),
+        "sweep_gflops_exec": round(c["flops_exec"] / 1e9, 4),
+        "sweep_bound_ms": bound_ms(c["bytes"], c["flops"])[0],
         "mfu_pct": round(100.0 * alg / peak, 3),
-        "exec_pct_of_peak": round(100.0 * c["flops"] / peak, 3),
+        "exec_pct_of_peak": round(100.0 * c["flops_exec"] / peak, 3),
     }

@@ -69,6 +69,9 @@ def test_call_work_counts_the_plain_sweeps_pairs(case):
     assert work["pairs"] == want
     assert work["pairs"] <= work["band_pairs"] <= planes * args[2].numel()
     assert work["bytes"] > 0 and work["flops"] > 0
+    # the bound's operations: the ZNCC's algorithmic 12 hp + 11 a scored pair
+    assert work["flops"] == want * (12.0 * (patch // 2) + 11.0)
+    assert work["flops_exec"] > work["flops"]
 
 
 def _engine(cfg_kw=None):
