@@ -37,8 +37,21 @@ TV-L1 against the single-device one, and the CLI's ``run --mesh 2,1,2
 profile scripts (640x480 and 752x480) and roofline, each through its
 ``main()`` at its defaults in a process of its own with the launch counts
 zeroed before and read after, the bench's accuracy held to the JAX engine's figures for the same
-sequence. Each resample pass is also timed as one ``grid_sample`` call, the
-library yardstick.
+sequence. Each resample pass and each warp is also timed as one
+``grid_sample`` call, the library yardstick.
+
+The two-pass homography warp runs as one fused kernel (``csrc/warp.cu``):
+three launches a rectified frame, one a pure-rotation frame, one a chunk of
+planes in a propagated reseed. It is held bit for bit against its plain
+version on every warp that the main path makes at 640x480 (frame 10's
+three, and its pure-rotation warp), 752x480, 1280x720 and 1920x1080, on
+the band slabs of the mesh and on the kept reseed's batches, and timed
+there in turns (unfused, fused, fused, unfused) against the unfused route
+it replaced (the coordinate fields in plain PyTorch, then the two 1-D
+resampling kernels of ``csrc/resample.cu``); the 640x480 run is replayed
+with each route in turns and must give the same depth map bit for bit. The
+1-D kernels stay on the path of the lens-undistortion grid
+(``Depthmap.init_undistortion_map``), which a short run of its own drives.
 
 ``--baseline DIR`` also builds the kernels of another checkout's
 ``rpg_open_remode_tpu_torch/csrc`` (for example the parent commit, unpacked
@@ -80,6 +93,7 @@ import numpy as np  # noqa: E402
 HARDEN = dict(noise_sigma=0.01, vignette=0.15, n_textureless=3, n_spheres=2)
 CAM_640 = dict(fx=481.2, fy=-480.0, cx=319.5, cy=239.5)
 CAM_720 = dict(fx=962.4, fy=-960.0, cx=639.5, cy=359.5)
+CAM_752 = dict(fx=481.2, fy=-480.0, cx=375.5, cy=239.5)   # eval.py's live_752x480 row
 # over_table row of the JAX package's EVAL.json and the bounds held here
 OVER_TABLE = dict(converged_pct=68.3, within_raw=0.936, within_denoised=0.980)
 HD_ROW = dict(converged_pct=64.8, within_raw=0.906)
@@ -94,6 +108,9 @@ WARP = 32
 KERNELS = {
     "sweep": dict(source="rpg_open_remode_tpu_torch/csrc/sweep.cu",
                   replaces="rpg_open_remode_tpu/ops/sweep_pallas.py:86"),
+    "warp": dict(source="rpg_open_remode_tpu_torch/csrc/warp.cu",
+                 replaces="rpg_open_remode_tpu/ops/warp_pallas.py:73, "
+                          "rpg_open_remode_tpu/ops/warp_pallas.py:124"),
     "resample_rows": dict(source="rpg_open_remode_tpu_torch/csrc/resample.cu",
                           replaces="rpg_open_remode_tpu/ops/warp_pallas.py:73"),
     "resample_cols": dict(source="rpg_open_remode_tpu_torch/csrc/resample.cu",
@@ -103,9 +120,14 @@ KERNELS = {
                           "rpg_open_remode_tpu/ops/denoise_pallas.py:177"),
 }
 # substrings of the device kernels' names in a profiler trace
-KERNEL_SYMBOLS = {"sweep": "sweep_kernel", "resample_rows": "resample_rows_kernel",
+KERNEL_SYMBOLS = {"sweep": "sweep_kernel", "warp": "homography_warp_kernel",
+                  "resample_rows": "resample_rows_kernel",
                   "resample_cols": "resample_cols_kernel", "tvl1": "tvl1_"}
+# the kernels of the engine's path; the 1-D resamplers run on the
+# undistortion path (UNDISTORT)
+PATH_KERNELS = ("sweep", "warp", "tvl1")
 WARP_LABELS = {5: "ref stack", 1: "curr", 3: "back-warp"}
+RECT_WARPS = tuple(WARP_LABELS.values())
 
 
 T_START = time.perf_counter()
@@ -198,6 +220,115 @@ def check_resample(resample_cuda, kind, img, coord, label):
     return err, out
 
 
+def warp_call(args):
+    """A ``warp_cuda.homography_warp`` call's positional arguments, with the
+    defaults filled in: (img, H, out_h, out_w, x0, y0, want_uv)."""
+    img, H, ho, wo, *rest = args
+    x0, y0, want_uv = list(rest) + [0.0, 0.0, True][len(rest):]
+    return img, H, ho, wo, x0, y0, want_uv
+
+
+def check_warp(args, label):
+    """The fused warp kernel equals its plain version bit for bit (the
+    image, and u and v where the call asks for them). Returns the max
+    error (0)."""
+    from rpg_open_remode_tpu_torch.ops import warp_cuda
+
+    call = warp_call(args)
+    got = warp_cuda.homography_warp(*call)
+    want = warp_cuda.homography_warp_plain(*call[:6])
+    err = max(max_err(g, w) for g, w in zip(got, want) if g is not None)
+    img, H = call[:2]
+    log(f"  warp {label} (C={img.shape[0]}, {tuple(img.shape[1:])} -> {call[2]}x{call[3]}, "
+        f"x0 {call[4]}, y0 {call[5]}, {H.shape[0]} homographies): max err {err:.3g}")
+    if err != 0.0:
+        raise AssertionError(f"warp kernel differs from the plain version ({label})")
+    return err
+
+
+def unfused_warp(img, H, out_h, out_w, x0=0.0, y0=0.0, want_uv=True):
+    """The warp's unfused route, which the fused kernel replaced: per
+    homography, the coordinate fields in plain PyTorch
+    (``warp_cuda.two_pass_coords``), then the vertical and the horizontal
+    1-D resampling kernels. The same arguments and values as
+    ``warp_cuda.homography_warp``."""
+    import torch
+
+    from rpg_open_remode_tpu_torch.ops import resample_cuda, warp_cuda
+
+    outs, us, vs = [], [], []
+    for p in range(H.shape[0]):
+        q, u, v = warp_cuda.two_pass_coords(H[p:p + 1], img.shape[-1], out_h, out_w, x0, y0)
+        mid = resample_cuda.resample_rows(img, q[0])
+        outs.append(resample_cuda.resample_cols(mid, u[0]))
+        us.append(u)
+        vs.append(v)
+    if len(outs) == 1:
+        out, u, v = outs[0][None], us[0], vs[0]
+    else:
+        out, u, v = torch.stack(outs), torch.cat(us), torch.cat(vs)
+    return (out, u, v) if want_uv else (out, None, None)
+
+
+@contextlib.contextmanager
+def unfused_route():
+    """Inside the block every warp of the engine takes ``unfused_warp``."""
+    from rpg_open_remode_tpu_torch.ops import warp_cuda
+
+    saved = warp_cuda.homography_warp
+    warp_cuda.homography_warp = unfused_warp
+    try:
+        yield
+    finally:
+        warp_cuda.homography_warp = saved
+
+
+def warp_work(args):
+    """(bytes, operations) of one fused warp call: the source read once, the
+    homographies read, the output (and u and v, when asked) written once;
+    ~48 + 12 C operations a pixel (coordinates 48, a division counted as
+    one; 3 lerps a channel)."""
+    img, H, ho, wo, _, _, want_uv = warp_call(args)
+    c, p = img.shape[0], H.shape[0]
+    n = p * ho * wo
+    return 4 * (img.numel() + 9 * p + c * n + (2 * n if want_uv else 0)), (48 + 12 * c) * n
+
+
+def host_ms(torch, fn, n=20):
+    """Host-clock milliseconds a call of ``fn()``: n calls from the first
+    enqueue to the end of a device sync, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def rect_homographies(rng, p, hs, ws, ho, wo):
+    """P rectifying-like homographies from an ``ho x wo`` output grid onto an
+    ``hs x ws`` source: scale, a small rotation and perspective, a shift."""
+    out = []
+    for _ in range(p):
+        th = rng.uniform(-0.05, 0.05)
+        sx, sy = ws / wo * rng.uniform(0.97, 1.03), hs / ho * rng.uniform(0.97, 1.03)
+        out.append([[sx * np.cos(th), -np.sin(th), rng.uniform(-8, 8)],
+                    [np.sin(th), sy * np.cos(th), rng.uniform(-8, 8)],
+                    [rng.uniform(-2e-5, 2e-5), rng.uniform(-2e-5, 2e-5), 1.0]])
+    return np.asarray(out, np.float32)
+
+
+# homographies whose denominators are exactly 0, -0.0 or below 1e-8 in
+# magnitude with either sign: the near-zero guard's both branches in u, v
+# and in pass 1 (tests/test_torch_warp_fused.py)
+DEGENERATE = np.asarray([
+    [[1e-10, 0.0, 0.0], [0.0, 1.0, 0.0], [1e-10, 0.0, -5e-10]],
+    [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.125, 0.0, -1.0]],
+    [[0.0, 1.0, 2.0], [1.0, 0.0, -1.0], [0.0, -0.0, -0.0]],
+], np.float32)
+
+
 def check_tvl1(torch, denoise_cuda, cfg, noisy, g, label, iters=200):
     """The kernel equals the plain version bit for bit. Returns the max
     error (0)."""
@@ -228,9 +359,10 @@ ROW_SIZES = {"752x480": (752, 480, 481.2, {}), "1920x1080": (1920, 1080, 1443.6,
 def kernel_parity(torch, dev, P, sizes):
     """Each kernel against its plain version, bit for bit, at each size's
     shapes: the sweep on numpy-seeded, ragged-band and edge-case inputs (full
-    pass and half-width coarse pass), both resamplers at the three warps'
-    shapes, TV-L1 at 200 and 37 iterations (warps and TV-L1 once per image
-    size). Returns the max error per kernel (0)."""
+    pass and half-width coarse pass), both resamplers on random coordinates
+    and the fused warp on random images at the three warps' shapes, TV-L1
+    at 200 and 37 iterations (warps and TV-L1 once per image size). Returns
+    the max error per kernel (0)."""
     from rpg_open_remode_tpu_torch.ops import denoise, denoise_cuda, resample_cuda, sweep_cuda
     from rpg_open_remode_tpu_torch.ops.rect_match import rect_shape
     from rpg_open_remode_tpu_torch.testing import sweep_cases
@@ -274,6 +406,13 @@ def kernel_parity(torch, dev, P, sizes):
             u = torch.tensor(rng.uniform(-2, ws + 2, (ho, wo)).astype(np.float32), device=dev)
             e, _ = check_resample(resample_cuda, "cols", mid, u, f"{name} {lab} random u")
             errs["resample_cols"] = max(errs["resample_cols"], e)
+            # the fused warp on random images: rectifying-like homographies
+            # and the degenerate ones, at the warp's output window
+            H = torch.tensor(np.concatenate([rect_homographies(rng, 2, hs, ws, ho, wo),
+                                             DEGENERATE]), device=dev)
+            x0 = -float(pad) if lab == "curr" else 0.0
+            errs["warp"] = max(errs["warp"], check_warp(
+                (img, H, ho, wo, x0, 0.0, True), f"{name} {lab} random"))
         noisy, a, b, sig = (
             torch.tensor(rng.uniform(lo, hi, (h, w)).astype(np.float32), device=dev)
             for lo, hi in ((1.0, 2.0), (5, 20), (5, 20), (0.001, 0.05)))
@@ -308,17 +447,18 @@ def launch_figures(sizes):
 
 @contextlib.contextmanager
 def intercept(hook):
-    """Call ``hook(kind, args)`` before every sweep ('sweep') and warp pass
-    ('rows', 'cols') that the engine makes inside the block (no hook: no
-    change). The wrappers themselves are untouched, so their launch counts
-    are too."""
+    """Call ``hook(kind, args)`` before every sweep ('sweep'), fused warp
+    ('warp') and 1-D resampling pass ('rows', 'cols') that the engine makes
+    inside the block (no hook: no change). The wrappers themselves are
+    untouched, so their launch counts are too."""
     if hook is None:
         yield
         return
-    from rpg_open_remode_tpu_torch.ops import rect_match, resample_cuda
+    from rpg_open_remode_tpu_torch.ops import rect_match, resample_cuda, warp_cuda
 
-    saved = (rect_match.disparity_sweep, resample_cuda.resample_rows,
-             resample_cuda.resample_cols)
+    targets = ((rect_match, "disparity_sweep", "sweep"), (warp_cuda, "homography_warp", "warp"),
+               (resample_cuda, "resample_rows", "rows"), (resample_cuda, "resample_cols", "cols"))
+    saved = [getattr(mod, name) for mod, name, _ in targets]
 
     def wrap(kind, fn):
         def call(*args):
@@ -326,14 +466,13 @@ def intercept(hook):
             return fn(*args)
         return call
 
-    rect_match.disparity_sweep = wrap("sweep", saved[0])
-    resample_cuda.resample_rows = wrap("rows", saved[1])
-    resample_cuda.resample_cols = wrap("cols", saved[2])
+    for (mod, name, kind), fn in zip(targets, saved):
+        setattr(mod, name, wrap(kind, fn))
     try:
         yield
     finally:
-        rect_match.disparity_sweep, resample_cuda.resample_rows, \
-            resample_cuda.resample_cols = saved
+        for (mod, name, _), fn in zip(targets, saved):
+            setattr(mod, name, fn)
 
 
 def make_frames(width, height, cam, n_frames, step=0.023):
@@ -426,9 +565,13 @@ def drive(torch, P, kernels, frames, cam, keep_frame=None, first=COARSE_FROM):
     acc = accuracy(eng.convergence_map(), eng.depthmap(), den, gt, float(d0.max() - d0.min()), P)
     if not np.isfinite(den).all() or not np.isfinite(eng.depthmap()).all():
         raise AssertionError("non-finite depth output")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in PATH_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    # every frame of these sequences takes the rectified matcher: three
+    # warps (a pure-rotation frame would make one)
+    if launches["warp"] != 3 * (len(frames) - 1):
+        raise AssertionError(f"{launches['warp']} warps for {len(frames) - 1} updates")
     return dict(eng=eng, kept=kept, frames=len(frames), launches=launches, wall_ms=wall_ms,
                 frame_ms_median=float(np.median(frame_ms)),
                 frame_ms_p90=float(np.percentile(frame_ms, 90)),
@@ -449,17 +592,15 @@ def report_run(label, r):
 
 
 def frame_calls(run):
-    """Frame KEEP_FRAME's kernel inputs by role: 'sweep full', and
-    ('rows'|'cols', warp label) for its three warps; and 'sweep coarse' from
-    the last frame up to it that runs the coarse pass (its number under
-    'coarse frame')."""
+    """Frame KEEP_FRAME's kernel inputs by role: 'sweep full', and under
+    'warps' its warps (``frame_warps``); and 'sweep coarse' from the last
+    frame up to it that runs the coarse pass (its number under 'coarse
+    frame')."""
     kept = run["kept"]["calls"]
-    out = {}
+    out = dict(warps=frame_warps(run))
     for kind, args in kept[KEEP_FRAME]:
         if kind == "sweep":
             out["sweep full" if args[10] else "sweep coarse"] = args
-        else:
-            out[(kind, WARP_LABELS[args[0].shape[0]])] = args
     coarse = [(i, args) for i in sorted(kept) for kind, args in kept[i]
               if kind == "sweep" and not args[10]]
     if "sweep full" not in out or not coarse:
@@ -470,28 +611,59 @@ def frame_calls(run):
     return out
 
 
+def frame_warps(run):
+    """Label -> arguments of frame KEEP_FRAME's three warps (the rectified
+    matcher's: 'ref stack', 'curr', 'back-warp'; no other warp or 1-D pass
+    is allowed on the frame), and of 'pure rotation': the warp that the
+    pure-rotation matcher makes on that frame's state, image and pose (the
+    branch a near-zero baseline takes)."""
+    calls = run["kept"]["calls"][KEEP_FRAME]
+    out = {WARP_LABELS[args[0].shape[0]]: args for kind, args in calls if kind == "warp"}
+    kinds = [kind for kind, _ in calls if kind != "sweep"]
+    if sorted(out) != sorted(RECT_WARPS) or kinds != ["warp"] * 3:
+        raise AssertionError(f"frame {KEEP_FRAME} made the calls {kinds}")
+    out["pure rotation"] = rotation_warp(run)
+    return out
+
+
+def rotation_warp(run):
+    """The arguments of the warp that ``rect_match.match_pure_rotation``
+    makes on frame KEEP_FRAME's kept state, image and pose."""
+    import torch
+
+    from rpg_open_remode_tpu_torch.ops import rect_match
+    from rpg_open_remode_tpu_torch.utils import se3
+
+    kept, eng = run["kept"], run["eng"]
+    img = eng.input_image(kept["img"])
+    Tcr = se3.compose(torch.tensor(kept["T"], device=img.device), kept["state"].T_world_ref)
+    calls = []
+    with intercept(lambda kind, args: calls.append((kind, args))):
+        rect_match.match_pure_rotation(kept["state"], img, Tcr, eng.cam, eng.cfg)
+    warps = [args for kind, args in calls if kind == "warp"]
+    if len(warps) != 1:
+        raise AssertionError(f"the pure-rotation matcher made {len(warps)} warps")
+    return warps[0]
+
+
 def real_input_parity(torch, P, run640, calls, size="640x480", cpu_check=True):
     """Kernel against plain version, bit for bit, on frame KEEP_FRAME's own
-    kernel inputs (both sweep passes, the three warps' passes); with
-    ``cpu_check`` its rectification warps on the card against the plain
-    path on the CPU; the denoise of the final state."""
+    kernel inputs (both sweep passes, the three warps and the pure-rotation
+    warp); with ``cpu_check`` its rectification warps on the card against
+    the plain path on the CPU; the denoise of the final state."""
     from rpg_open_remode_tpu_torch.models.depthmap import prep_image
-    from rpg_open_remode_tpu_torch.ops import denoise_cuda, rect_match, resample_cuda, sweep_cuda
+    from rpg_open_remode_tpu_torch.ops import denoise_cuda, rect_match, sweep_cuda
     from rpg_open_remode_tpu_torch.utils import se3
     from rpg_open_remode_tpu_torch.utils.camera import PinholeCamera
 
     errs = {k: 0.0 for k in KERNELS}
-    for key, args in calls.items():
-        if key == "coarse frame":
-            continue
-        if isinstance(key, str):
-            frame = KEEP_FRAME if key == "sweep full" else calls["coarse frame"]
-            errs["sweep"] = max(errs["sweep"], check_sweep(
-                sweep_cuda, args[:6], *args[6:], f"frame {frame} {key.split()[1]} pass"))
-        else:
-            kind, lab = key
-            e, _ = check_resample(resample_cuda, kind, *args, f"frame {KEEP_FRAME} {lab}")
-            errs[f"resample_{kind}"] = max(errs[f"resample_{kind}"], e)
+    for key in ("sweep full", "sweep coarse"):
+        frame = KEEP_FRAME if key == "sweep full" else calls["coarse frame"]
+        args = calls[key]
+        errs["sweep"] = max(errs["sweep"], check_sweep(
+            sweep_cuda, args[:6], *args[6:], f"frame {frame} {key.split()[1]} pass"))
+    for lab, args in calls["warps"].items():
+        errs["warp"] = max(errs["warp"], check_warp(args, f"{size} frame {KEEP_FRAME} {lab}"))
 
     kept, eng = run640["kept"], run640["eng"]
     state, cfg = kept["state"], eng.cfg
@@ -527,16 +699,15 @@ def plain_peaks(torch, calls, eng):
     """Peak device memory of each plain version on the FHD run's own inputs:
     ``torch.cuda.max_memory_allocated`` over the call, less what was
     allocated before it. Returns bytes per call."""
-    from rpg_open_remode_tpu_torch.ops import denoise_cuda, resample_cuda, sweep_cuda
+    from rpg_open_remode_tpu_torch.ops import denoise_cuda, sweep_cuda, warp_cuda
 
     cfg = eng.cfg
     g, mu = tvl1_weights(eng.state, cfg), eng.state.mu.contiguous()
     cases = {key: (lambda a=calls[key]: sweep_cuda.disparity_sweep_plain(*a))
              for key in ("sweep full", "sweep coarse")}
-    for kind in ("rows", "cols"):
-        plain = getattr(resample_cuda, f"resample_{kind}_plain")
-        for lab in WARP_LABELS.values():
-            cases[f"resample_{kind} {lab}"] = (lambda f=plain, a=calls[(kind, lab)]: f(*a))
+    for lab in RECT_WARPS:
+        cases[f"warp {lab}"] = (
+            lambda a=warp_call(calls["warps"][lab]): warp_cuda.homography_warp_plain(*a[:6]))
     cases["tvl1 200 iterations"] = lambda: denoise_cuda.tvl1_plain(mu, g, 0.5, 200, cfg)
     out = {}
     for key, fn in cases.items():
@@ -553,26 +724,36 @@ def plain_peaks(torch, calls, eng):
     return out
 
 
-def fhd_run(torch, dev, P, kernels):
-    """A short run of the 1920x1080 hardened scene through ``Depthmap`` at
-    ``for_camera(1443.6)`` (patch 15, 383 planes; launch counts zeroed just
-    before, read just after): frame KEEP_FRAME's own sweep (full and the last
-    coarse pass) and warp inputs, and the final state's TV-L1, held bit for
-    bit against the plain versions; the plain versions' peak memory; each
-    kernel timed on those inputs beside its bound and plain time."""
+def size_run(torch, P, kernels, label, width, height, cam, n_frames):
+    """A short run of the hardened scene at another size through
+    ``Depthmap`` at ``for_camera(fx)`` (launch counts zeroed just before,
+    read just after, every kernel of the path launched): frame KEEP_FRAME's
+    own sweep (full and the last coarse pass) and warp inputs, its
+    pure-rotation warp, and the final state's TV-L1, held bit for bit
+    against the plain versions."""
+    frames = make_frames(width, height, cam, n_frames)
+    run = drive(torch, P, kernels, frames, cam, keep_frame=KEEP_FRAME, first=1)
+    cfg = run["eng"].cfg
+    log(f"  config for_camera({cam['fx']}): patch {cfg.patch_side}, {cfg.num_planes} "
+        f"planes, disp_pad {cfg.disp_pad}")
+    report_run(label, run)
+    calls = frame_calls(run)
+    errs = real_input_parity(torch, P, run, calls, size=label, cpu_check=False)
+    return run, calls, errs
+
+
+def fhd_run(torch, P, kernels):
+    """``size_run`` of the 1920x1080 scene at ``for_camera(1443.6)`` (patch
+    15, 383 planes); the plain versions' peak memory; each kernel timed on
+    frame KEEP_FRAME's inputs beside its bound and plain time, the warps in
+    turns with the unfused route."""
     from rpg_open_remode_tpu_torch.eval import CAM_1080
 
-    frames = make_frames(1920, 1080, CAM_1080, FHD_FRAMES)
-    run = drive(torch, P, kernels, frames, CAM_1080, keep_frame=KEEP_FRAME, first=1)
-    cfg = run["eng"].cfg
-    log(f"  config for_camera({CAM_1080['fx']}): patch {cfg.patch_side}, {cfg.num_planes} "
-        f"planes, disp_pad {cfg.disp_pad}")
-    report_run("1920x1080", run)
-    calls = frame_calls(run)
-    errs = real_input_parity(torch, P, run, calls, size="1920x1080", cpu_check=False)
+    run, calls, errs = size_run(torch, P, kernels, "1920x1080", 1920, 1080, CAM_1080,
+                                FHD_FRAMES)
     peaks = plain_peaks(torch, calls, run["eng"])
     rows = sweep_timings(torch, calls, f"the {FHD_FRAMES}-frame 1920x1080 run")
-    rows.update(resample_timings(torch, dev, calls))
+    rows["warp"] = warp_timings(torch, warp_instances(calls["warps"], "1920x1080"))
     rows["tvl1"] = tvl1_timing(torch, run["eng"], "200 iterations at 1920x1080")
     log_timings(rows)
     return dict(run=run, errs=errs, peaks=peaks, timings=rows)
@@ -626,13 +807,13 @@ def share(pair):
 
 def run_work(torch, calls):
     """Sum, over the run's kept calls, each sweep pass's admitted pairs,
-    bound and measured lane use, and each warp pass's bound."""
+    bound and measured lane use, and each warp's bound."""
     from rpg_open_remode_tpu_torch.ops.accounting import bound_ms
 
     tot = {k: dict(calls=0, pairs=0.0, bound_ms=0.0, busy_frames=[], scoring=[0, 0],
                    per_pixel=[0, 0], pixel_loop_model=[0.0, 0.0])
            for k in ("sweep full", "sweep coarse")}
-    tot.update({k: dict(calls=0, bound_ms=0.0) for k in ("rows", "cols")})
+    tot.update({k: dict(calls=0, bound_ms=0.0) for k in ("warp", "rows", "cols")})
     for i, kind, x in calls:
         if kind == "sweep":
             t = tot["sweep full" if x[10] else "sweep coarse"]
@@ -657,9 +838,9 @@ def run_work(torch, calls):
             f"{share(t['scoring']):.3f}, per-pixel loops {share(t['per_pixel']):.3f}; "
             f"one-thread-per-pixel loop by the schedule model (not measured) "
             f"{share(t['pixel_loop_model']):.3f}")
-    for key in ("rows", "cols"):
-        log(f"  resample_{key}: {tot[key]['calls']} calls, summed bound "
-            f"{tot[key]['bound_ms']:.4f} ms")
+    for key in ("warp", "rows", "cols"):
+        log(f"  {'warp' if key == 'warp' else 'resample_' + key}: {tot[key]['calls']} calls, "
+            f"summed bound {tot[key]['bound_ms']:.4f} ms")
     return tot
 
 
@@ -676,7 +857,8 @@ def profile_run(torch, P, frames, cam, label, wall_ms, account=False):
     calls = []
 
     def keep(i, kind, args):
-        calls.append((i, kind, args if kind == "sweep" else resample_bytes(kind, *args)))
+        calls.append((i, kind, args if kind == "sweep" else warp_work(args) if kind == "warp"
+                      else resample_bytes(kind, *args)))
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng, _, _ = replay(torch, P, frames, cam, hook=keep if account else None)
@@ -757,16 +939,18 @@ def lifecycle_accuracy(torch, P, over_table, fast):
 
 
 def propagation(torch, P, kept):
-    """Depth propagation on the kept switch: each of its resample calls (C=3,
-    full image) against the plain version; one whole propagated reseed timed
-    with CUDA events; the reseed's resample calls timed as a CUDA graph
-    beside their summed bound and their plain versions; one reseed under the
-    profiler for its device launches."""
+    """Depth propagation on the kept switch: each of its warp calls (C=3,
+    full image, ``propagate.WARP_CHUNK`` planes a call) against the plain
+    version; those calls timed as CUDA graphs and on the host clock in turns
+    with the unfused route (one warp a plane), beside their summed bound,
+    their plain versions and grid_sample; the whole reseed with each route
+    in turns (CUDA events; the seeded states must agree bit for bit); one
+    reseed with each route under the profiler for its device operations."""
     from torch.profiler import ProfilerActivity, profile
 
     from rpg_open_remode_tpu_torch.models import depthmap
     from rpg_open_remode_tpu_torch.models.state import SceneParams
-    from rpg_open_remode_tpu_torch.ops import propagate, resample_cuda
+    from rpg_open_remode_tpu_torch.ops import propagate, warp_cuda
     from rpg_open_remode_tpu_torch.ops.accounting import bound_ms
     from rpg_open_remode_tpu_torch.utils.profiling import graph_ms
 
@@ -778,51 +962,75 @@ def propagation(torch, P, kept):
     def reseed():
         return depthmap._set_reference_propagated(kept["state"], img, T, scene, eng.cam, eng.cfg)
 
-    calls = {"rows": [], "cols": []}
-    with intercept(lambda kind, args: calls[kind].append(args)):
+    calls = []
+    with intercept(lambda kind, args: calls.append((kind, args))):
         state = reseed()
     h, w = img.shape
-    for kind, args in calls.items():
-        shapes = {(tuple(a.shape), tuple(c.shape)) for a, c in args}
-        if len(args) != propagate.PLANES or shapes != {((3, h, w), (h, w))}:
-            raise AssertionError(f"propagation made {len(args)} {kind} calls of {shapes}")
+    warps = [warp_call(args) for kind, args in calls if kind == "warp"]
+    n_calls = -(-propagate.PLANES // propagate.WARP_CHUNK)
+    shapes = sorted({(tuple(c[0].shape), c[2], c[3]) for c in warps})
+    planes = [c[1].shape[0] for c in warps]
+    if (len(calls) != n_calls or len(warps) != n_calls or shapes != [((3, h, w), h, w)]
+            or sum(planes) != propagate.PLANES):
+        raise AssertionError(f"propagation made the calls {[k for k, _ in calls]} of {shapes}, "
+                             f"{planes} planes")
     out = dict(carried_pct=100.0 * float((state.sigma_sq != scene.sigma_sq_max).float().mean()))
-    for kind, args in calls.items():
-        fn = getattr(resample_cuda, f"resample_{kind}")
-        plain = getattr(resample_cuda, f"resample_{kind}_plain")
-        err = max(max_err(fn(*a), plain(*a)) for a in args)
-        log(f"  {len(args)} resample_{kind} calls (C=3, {h}x{w}) of the reseed: max err {err:.3g}")
-        if err != 0.0:
-            raise AssertionError(f"resample_{kind} differs from its plain version in propagation")
-        nb = sum(resample_bytes(kind, *a)[0] for a in args)
-        nf = sum(resample_bytes(kind, *a)[1] for a in args)
-        libs = [grid_sample_call(torch, kind, *a) for a in args]
-        lib_err = max(e for _, e in libs)
-        if lib_err > GRID_SAMPLE_TOL:
-            raise AssertionError(f"grid_sample is no resample_{kind}: {lib_err:.3g}")
-        out[f"resample_{kind}"] = dict(
-            calls=len(args), max_abs_err=err, bound=bound_ms(nb, nf),
-            ms=graph_ms(lambda: [fn(*a) for a in args], n=2, reps=5),
-            plain_ms=cuda_ms(torch, lambda: [plain(*a) for a in args], 3, 1),
-            library_ms=graph_ms(lambda: [f() for f, _ in libs], n=2, reps=5),
-            library_err=lib_err)
-        del libs
-    out["reseed_ms"] = cuda_ms(torch, reseed, 5, 1)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        reseed()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    out["device_ops_per_switch"] = len(names)
-    out["copies_per_switch"] = sum(n.startswith(("Memcpy", "Memset")) for n in names)
-    log(f"  propagated reseed {out['reseed_ms']:.3f} ms (CUDA events), {out['carried_pct']:.2f} % "
-        f"of pixels carried; {out['device_ops_per_switch']} device operations per switch "
-        f"({out['copies_per_switch']} copies or fills; profiler)")
-    for kind in ("rows", "cols"):
-        r = out[f"resample_{kind}"]
-        log(f"  resample_{kind}, the reseed's {r['calls']} calls: {r['ms']:.4f} ms (CUDA graph; "
-            f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by {r['bound'][1]}; "
-            f"grid_sample {r['library_ms']:.4f} ms, max err {r['library_err']:.3g} of the "
-            f"image's largest magnitude)")
+    err = max(check_warp(c, f"reseed call {k}") for k, c in enumerate(warps))
+    routes = dict(fused=lambda: [warp_cuda.homography_warp(*c) for c in warps],
+                  unfused=lambda: [unfused_warp(*c) for c in warps])
+    turns = {k: [] for k in ("fused", "unfused", "fused_host", "unfused_host", "reseed_fused",
+                             "reseed_unfused")}
+    states = {}
+    for which in ("unfused", "fused", "fused", "unfused"):
+        turns[which].append(graph_ms(routes[which], n=2, reps=5))
+        turns[which + "_host"].append(host_ms(torch, routes[which], n=3))
+        with unfused_route() if which == "unfused" else contextlib.nullcontext():
+            turns["reseed_" + which].append(cuda_ms(torch, reseed, 5, 1))
+            states[which] = reseed()
+    differ = [f.name for f in dataclasses.fields(state) if f.name != "scene" and max_err(
+        getattr(states["fused"], f.name), getattr(states["unfused"], f.name)) != 0.0]
+    if differ:
+        raise AssertionError(f"the fused and unfused reseeds differ in {differ}")
+    libs = [grid_sample_warp(torch, c) for c in warps]
+    lib_err = max(e for _, e, _ in libs)
+    if lib_err > GRID_SAMPLE_TOL:
+        raise AssertionError(f"grid_sample is no bilinear sample at the warp's (u, v): {lib_err:.3g}")
+    work = [warp_work(c) for c in warps]
+    mean = {k: float(np.mean(v)) for k, v in turns.items()}
+    out["warp"] = dict(
+        calls=len(warps), planes=planes, max_abs_err=err,
+        bound=bound_ms(sum(b for b, _ in work), sum(f for _, f in work)),
+        ms=mean["fused"], unfused_ms=mean["unfused"], host_ms=mean["fused_host"],
+        unfused_host_ms=mean["unfused_host"], turns=turns,
+        plain_ms=cuda_ms(torch, lambda: [warp_cuda.homography_warp_plain(*c[:6]) for c in warps],
+                         3, 1),
+        library_ms=graph_ms(lambda: [f() for f, _, _ in libs], n=2, reps=5), library_err=lib_err,
+        library_vs_two_pass=max(d for _, _, d in libs))
+    del libs
+    out["reseed_ms"], out["reseed_ms_unfused"] = mean["reseed_fused"], mean["reseed_unfused"]
+    for which in ("fused", "unfused"):
+        with unfused_route() if which == "unfused" else contextlib.nullcontext():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                reseed()
+                torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        tag = "" if which == "fused" else "_unfused"
+        out["device_ops_per_switch" + tag] = len(names)
+        out["copies_per_switch" + tag] = sum(n.startswith(("Memcpy", "Memset")) for n in names)
+    r = out["warp"]
+    log(f"  propagated reseed, in turns (unfused, fused, fused, unfused): fused "
+        f"{turns['reseed_fused']} ms, unfused {turns['reseed_unfused']} ms (CUDA events); "
+        f"states equal bit for bit; {out['carried_pct']:.2f} % of pixels carried; "
+        f"{out['device_ops_per_switch']} device operations per switch fused "
+        f"({out['copies_per_switch']} copies or fills), {out['device_ops_per_switch_unfused']} "
+        f"unfused ({out['copies_per_switch_unfused']}; profiler)")
+    log(f"  warp, the reseed's {r['calls']} calls of {planes} planes: {r['ms']:.4f} ms (CUDA "
+        f"graph; the unfused route's {propagate.PLANES} planes {r['unfused_ms']:.4f} ms), host "
+        f"clock {r['host_ms']:.4f} ms (unfused {r['unfused_host_ms']:.4f} ms); plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by {r['bound'][1]}, share "
+        f"{r['bound'][0] / r['ms']:.3f}; grid_sample {r['library_ms']:.4f} ms (max err "
+        f"{lib_err:.3g} against the bilinear gather, {r['library_vs_two_pass']:.3g} against "
+        f"the two-pass value)")
     return out
 
 
@@ -870,10 +1078,15 @@ def profile_lifecycle(torch, P, fast):
         log(f"  profile fast_motion_propagated: {k} {row_k['run']['ms']:.4f} ms over "
             f"{row_k['run']['launches']} launches, of which the {len(spans)} reseeds "
             f"{row_k['reseeds']['ms']:.4f} ms over {row_k['reseeds']['launches']}")
+    from rpg_open_remode_tpu_torch.ops import propagate
+
+    per = -(-propagate.PLANES // propagate.WARP_CHUNK)
     log(f"  profile fast_motion_propagated: {out['device_ops_per_switch']:.1f} device "
-        f"operations per propagated reseed; each resampler launched "
-        f"{out['kernels']['resample_rows']['reseeds']['launches']} times in the reseeds "
-        f"(by construction {len(spans)} x 96)")
+        f"operations per propagated reseed; the warp launched "
+        f"{out['kernels']['warp']['reseeds']['launches']} times in the reseeds (by "
+        f"construction {len(spans)} x {per})")
+    if out["kernels"]["warp"]["reseeds"]["launches"] != len(spans) * per:
+        raise AssertionError("the reseeds' warp launches are not one a chunk of planes")
     return out
 
 
@@ -951,9 +1164,9 @@ def cli_run(torch, P, kernels, argv, out_dir, propagate, keyframes=1):
     before and read just after; checks the exit, the exported files, with
     ``--checkpoint`` the last checkpoint against the node's last keyframe,
     the worker's stream and the counts against the path (TV-L1: 50 a
-    keyframe; each resampler: 3 a slot-update and 96 a propagated reseed;
-    the sweep 1 or 2 a slot-update). ``keyframes`` > 1: the ring's run.
-    Returns its figures."""
+    keyframe; the warp: 3 a slot-update and one a chunk of planes in a
+    propagated reseed; the 1-D resamplers: none; the sweep 1 or 2 a
+    slot-update). ``keyframes`` > 1: the ring's run. Returns its figures."""
     from rpg_open_remode_tpu_torch import cli
     from rpg_open_remode_tpu_torch.io import load_state
     from rpg_open_remode_tpu_torch.ops import propagate as prop
@@ -975,8 +1188,9 @@ def cli_run(torch, P, kernels, argv, out_dir, propagate, keyframes=1):
     else:
         n_updates = n_frames - n_seeds
     n_switches = n_seeds - keyframes
-    per_warp = 3 * n_updates + prop.PLANES * (n_switches if propagate else 0)
-    want = dict(resample_rows=per_warp, resample_cols=per_warp, tvl1=50 * n_kf)
+    per_reseed = -(-prop.PLANES // prop.WARP_CHUNK)
+    want = dict(warp=3 * n_updates + per_reseed * (n_switches if propagate else 0),
+                resample_rows=0, resample_cols=0, tvl1=50 * n_kf)
     problems = [f"{k}: {launches[k]} launches, want {v}" for k, v in want.items()
                 if launches[k] != v]
     if n_kf < 1 or not n_updates <= launches["sweep"] <= 2 * n_updates:
@@ -1178,7 +1392,7 @@ def ring_node_run(torch, P, kernels, frames, B):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in PATH_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the ring at B={B}: {missing}")
     if rec.get("streams") != {main_stream}:
@@ -1385,15 +1599,29 @@ def mesh_rank(mesh, io, frames, denoise):
 
 def slab_parity(torch, calls):
     """Each kept kernel call against its plain version, and its time (CUDA
-    graph) beside its bound, the plain version's time and, for a resample
-    pass, one ``grid_sample`` call's."""
-    from rpg_open_remode_tpu_torch.ops import resample_cuda, sweep_cuda
+    graph) beside its bound, the plain version's time and, for a warp, one
+    ``grid_sample`` call's and the unfused route's in turns
+    (``warp_timing``)."""
+    from rpg_open_remode_tpu_torch.ops import resample_cuda, sweep_cuda, warp_cuda
     from rpg_open_remode_tpu_torch.ops.accounting import bound_ms
     from rpg_open_remode_tpu_torch.utils.profiling import graph_ms
 
     out = []
     for i, kind, args in calls:
         library_ms = None
+        if kind == "warp":
+            call = warp_call(args)
+            got = warp_cuda.homography_warp(*call)
+            want = warp_cuda.homography_warp_plain(*call[:6])
+            err = max(max_err(g, x) for g, x in zip(got, want) if g is not None)
+            img, H, ho, wo, x0, y0, _ = call
+            r = warp_timing(torch, None, call)
+            out.append(dict(frame=i, name=f"warp {WARP_LABELS[img.shape[0]]} C={img.shape[0]}",
+                            shape=str((tuple(img.shape), (ho, wo), (x0, y0))), max_abs_err=err,
+                            **{k: r[k] for k in ("ms", "bound", "plain_ms", "library_ms",
+                                                 "unfused_ms", "host_ms", "unfused_host_ms",
+                                                 "share")}))
+            continue
         if kind == "sweep":
             got = sweep_cuda.disparity_sweep(*args)
             want = sweep_cuda.disparity_sweep_plain(*args)
@@ -1518,6 +1746,10 @@ def mesh_phase(torch, P, kernels, frames640):
                 r["calls"].append(c)
                 lib = ("" if c["library_ms"] is None
                        else f", grid_sample {c['library_ms']:.4f} ms")
+                if "unfused_ms" in c:
+                    lib += (f"; the unfused route {c['unfused_ms']:.4f} ms, host clock "
+                            f"{c['unfused_host_ms']:.4f} ms against {c['host_ms']:.4f} ms, "
+                            f"share of the bound {c['share']:.3f}")
                 log(f"    rank {x['rank']} frame {c['frame']} {c['name']} {c['shape']}: max err "
                     f"{c['max_abs_err']:.3g}; {c['ms']:.4f} ms (CUDA graph), bound "
                     f"{c['bound'][0]:.4f} ms by {c['bound'][1]}, plain {c['plain_ms']:.4f} ms{lib}")
@@ -1545,8 +1777,7 @@ def mesh_phase(torch, P, kernels, frames640):
             f"{r['frame_ms_p90']:.3f} ms (rank 0, host clock, synchronized); staged "
             f"{r['staged_bytes_per_frame'] / 1e6:.3f} MB per frame over all ranks; launches "
             f"per rank {r['launches']}; {r['seconds']:.1f} s")
-        missing = [(i, k) for i, x in enumerate(r["launches"]) for k in ("sweep", "resample_rows",
-                                                                          "resample_cols")
+        missing = [(i, k) for i, x in enumerate(r["launches"]) for k in ("sweep", "warp")
                    if x[k] <= 0]
         if missing or not r["calls"]:
             bad.append(f"{shape}: kernels not launched {missing}")
@@ -1560,7 +1791,7 @@ def mesh_phase(torch, P, kernels, frames640):
 def mesh_cli(torch, kernels):
     """``run --synthetic --frames 60 --mesh 2,1,2 --keyframes 2 --propagate
     --map-voxel 0.01`` through ``cli.main`` in this process: it exports
-    keyframes, and every rank launched the sweep and both resamplers."""
+    keyframes, and every rank launched the sweep and the warp."""
     from rpg_open_remode_tpu_torch import cli
 
     build = Path(__file__).resolve().parent / "build"
@@ -1598,7 +1829,7 @@ def mesh_cli(torch, kernels):
     if n_kf < 1 or not want <= set(files) or "global_map.ply" not in files:
         problems.append(f"{n_kf} keyframes, files {files}")
     problems += [f"rank {x['rank']} launched no {k}" for x in res.ranks
-                 for k in ("sweep", "resample_rows", "resample_cols") if x["launches"][k] <= 0]
+                 for k in ("sweep", "warp") if x["launches"][k] <= 0]
     if problems:
         raise AssertionError("the CLI's mesh run: " + "; ".join(problems))
     return r
@@ -1662,10 +1893,10 @@ SCRIPTS = {
     "roofline": ("rpg_open_remode_tpu_torch.scripts.roofline", []),
 }
 SCRIPT_KERNELS = {
-    "bench": ("sweep", "resample_rows", "resample_cols", "tvl1"),
-    "bench_scaling": ("sweep", "resample_rows", "resample_cols"),
-    "profile_update": ("sweep", "resample_rows", "resample_cols"),
-    "profile_match": ("sweep", "resample_rows", "resample_cols"),
+    "bench": ("sweep", "warp", "tvl1"),
+    "bench_scaling": ("sweep", "warp"),
+    "profile_update": ("sweep", "warp"),
+    "profile_match": ("sweep", "warp"),
     "roofline": ("sweep",),
 }
 SCRIPT_TIMEOUT_S = 600
@@ -1785,48 +2016,130 @@ def sweep_timings(torch, calls, what):
     return rows
 
 
-def resample_timings(torch, dev, calls):
-    """Each pass of the three warps in ``calls``, summed: CUDA-graph time on
-    the frame's own coordinates and on random ones, plain time, one
-    ``grid_sample`` call per pass (the library yardstick), bound."""
+def resample_timings(torch, calls):
+    """The undistortion path's two 1-D passes (``calls``: kind -> one call's
+    arguments): CUDA-graph time, plain time, one ``grid_sample`` call (the
+    library yardstick), bound."""
     from rpg_open_remode_tpu_torch.ops import resample_cuda
     from rpg_open_remode_tpu_torch.ops.accounting import bound_ms
     from rpg_open_remode_tpu_torch.utils.profiling import graph_ms
 
-    rng = np.random.default_rng(1)
     rows = {}
-    for kind in ("rows", "cols"):
+    for kind, (img, coord) in calls.items():
         fn = getattr(resample_cuda, f"resample_{kind}")
         plain = getattr(resample_cuda, f"resample_{kind}_plain")
-        t = dict(ms=0.0, ms_random=0.0, plain_ms=0.0, library_ms=0.0, library_err=0.0,
-                 bytes=0.0, flops=0.0, per_call={})
-        for lab in WARP_LABELS.values():
-            img, coord = calls[(kind, lab)]
-            n = img.shape[-2] if kind == "rows" else img.shape[-1]
-            rand = torch.tensor(rng.uniform(0, n - 1, tuple(coord.shape)).astype(np.float32),
-                                device=dev)
-            ms = graph_ms(lambda: fn(img, coord))
-            ms_r = graph_ms(lambda: fn(img, rand))
-            lib, lib_err = grid_sample_call(torch, kind, img, coord)
-            lib_ms = graph_ms(lib)
-            nb, nf = resample_bytes(kind, img, coord)
-            t["per_call"][lab] = dict(ms=ms, ms_random=ms_r, library_ms=lib_ms,
-                                      bound_ms=bound_ms(nb, nf)[0])
-            t["ms"] += ms
-            t["ms_random"] += ms_r
-            t["library_ms"] += lib_ms
-            t["library_err"] = max(t["library_err"], lib_err)
-            t["plain_ms"] += cuda_ms(torch, lambda: plain(img, coord), 20)
-            t["bytes"] += nb
-            t["flops"] += nf
-        if t["library_err"] > GRID_SAMPLE_TOL:
-            raise AssertionError(f"grid_sample is no resample_{kind}: {t['library_err']:.3g}")
+        lib, lib_err = grid_sample_call(torch, kind, img, coord)
+        if lib_err > GRID_SAMPLE_TOL:
+            raise AssertionError(f"grid_sample is no resample_{kind}: {lib_err:.3g}")
         rows[f"resample_{kind}"] = dict(
-            ms=t["ms"], ms_random=t["ms_random"], plain_ms=t["plain_ms"],
-            library_ms=t["library_ms"], library_err=t["library_err"],
-            bound=bound_ms(t["bytes"], t["flops"]), per_call=t["per_call"],
-            work=f"the 3 calls of frame {KEEP_FRAME} (ref stack, curr, back-warp)")
+            ms=graph_ms(lambda: fn(img, coord)), plain_ms=cuda_ms(torch, lambda: plain(img, coord), 20),
+            library_ms=graph_ms(lib), library_err=lib_err,
+            bound=bound_ms(*resample_bytes(kind, img, coord)),
+            work=f"one call of the undistortion run ({tuple(img.shape)} -> {tuple(coord.shape)})")
     return rows
+
+
+def warp_instances(warps, size):
+    """``frame_warps``' warps labelled with their image size."""
+    return {f"{size} {lab}": args for lab, args in warps.items()}
+
+
+def warp_run(torch, P, kernels, label, width, height, cam, n_frames):
+    """A short run through ``Depthmap`` at ``for_camera(fx)`` (launch
+    counts zeroed just before, read just after, every kernel of the path
+    launched) that keeps frame KEEP_FRAME's warps (``frame_warps``), each
+    held bit for bit against the plain version. Returns (run, label ->
+    arguments)."""
+    frames = make_frames(width, height, cam, n_frames)
+    run = drive(torch, P, kernels, frames, cam, keep_frame=KEEP_FRAME, first=KEEP_FRAME)
+    report_run(label, run)
+    warps = warp_instances(frame_warps(run), label)
+    run["warp_err"] = max(check_warp(args, lab) for lab, args in warps.items())
+    return run, warps
+
+
+def grid_sample_warp(torch, call):
+    """One ``grid_sample`` call (bilinear, border padding, align_corners,
+    one batch entry a homography) at the warp's source coordinates (u, v),
+    the grid built outside the call. grid_sample is a 2-D bilinear sample,
+    not the two-pass value: it is held to the plain 4-tap bilinear gather
+    at (u, v) within GRID_SAMPLE_TOL of the image's largest magnitude, and
+    its difference from the two-pass value is reported. Returns (the call,
+    that error, the difference)."""
+    from rpg_open_remode_tpu_torch.ops import warp_cuda
+    from rpg_open_remode_tpu_torch.utils.interp import bilinear
+
+    img, H, ho, wo, x0, y0, _ = call
+    c, hs, ws = img.shape
+    p = H.shape[0]
+    two_pass, u, v = warp_cuda.homography_warp_plain(img, H, ho, wo, x0, y0)
+    grid = torch.stack([2.0 * u / (ws - 1) - 1.0, 2.0 * v / (hs - 1) - 1.0], -1).contiguous()
+    src = img[None].expand(p, c, hs, ws).contiguous()
+
+    def lib():
+        return torch.nn.functional.grid_sample(src, grid, mode="bilinear", padding_mode="border",
+                                               align_corners=True)
+
+    got = lib()
+    scale = max(float(img.abs().max()), 1e-30)
+    err = max(float((got[k] - bilinear(img, u[k], v[k])).abs().max()) for k in range(p)) / scale
+    return lib, err, float((got - two_pass).abs().max()) / scale
+
+
+def warp_timing(torch, label, args):
+    """One warp call: the fused kernel and the unfused route in turns
+    (unfused, fused, fused, unfused), each as a CUDA graph (device ms a
+    call) and on the host clock (ms a call); one grid_sample call; the
+    plain version; the bound. Logged under ``label`` (None: not logged)."""
+    from rpg_open_remode_tpu_torch.ops import warp_cuda
+    from rpg_open_remode_tpu_torch.ops.accounting import bound_ms
+    from rpg_open_remode_tpu_torch.utils.profiling import graph_ms
+
+    call = warp_call(args)
+    routes = dict(fused=lambda: warp_cuda.homography_warp(*call),
+                  unfused=lambda: unfused_warp(*call))
+    turns = {k: [] for k in ("fused", "unfused", "fused_host", "unfused_host")}
+    for which in ("unfused", "fused", "fused", "unfused"):
+        turns[which].append(graph_ms(routes[which]))
+        turns[which + "_host"].append(host_ms(torch, routes[which]))
+    lib, lib_err, lib_two_pass = grid_sample_warp(torch, call)
+    if lib_err > GRID_SAMPLE_TOL:
+        raise AssertionError(f"grid_sample is no bilinear sample at the warp's (u, v): {lib_err:.3g}")
+    nb, nf = warp_work(call)
+    r = dict(ms=float(np.mean(turns["fused"])), host_ms=float(np.mean(turns["fused_host"])),
+             unfused_ms=float(np.mean(turns["unfused"])),
+             unfused_host_ms=float(np.mean(turns["unfused_host"])), turns=turns,
+             library_ms=graph_ms(lib), library_err=lib_err, library_vs_two_pass=lib_two_pass,
+             plain_ms=cuda_ms(torch, lambda: warp_cuda.homography_warp_plain(*call[:6]), 5, 1),
+             bytes=nb, flops=nf, bound=bound_ms(nb, nf))
+    r["share"] = r["bound"][0] / r["ms"]
+    if label is None:
+        return r
+    img, H = call[:2]
+    log(f"  warp {label} (C={img.shape[0]}, {H.shape[0]} x {call[2]}x{call[3]}): fused "
+        f"{r['ms']:.4f} ms device (CUDA graph), {r['host_ms']:.4f} ms host clock a call; "
+        f"unfused route {r['unfused_ms']:.4f} ms device, {r['unfused_host_ms']:.4f} ms host; "
+        f"plain {r['plain_ms']:.4f} ms; grid_sample {r['library_ms']:.4f} ms; bound "
+        f"{r['bound'][0]:.4f} ms by {r['bound'][1]}, share {r['share']:.3f} (turns "
+        f"{turns['unfused'][0]:.4f}/{turns['fused'][0]:.4f}/{turns['fused'][1]:.4f}/"
+        f"{turns['unfused'][1]:.4f} ms; grid_sample max err {lib_err:.3g} against the bilinear "
+        f"gather, {lib_two_pass:.3g} against the two-pass value, of the image's largest "
+        f"magnitude)")
+    return r
+
+
+def warp_timings(torch, instances):
+    """``warp_timing`` of each instance (label -> arguments); the sums over
+    the rectified matcher's three warps (the per-frame figures)."""
+    per = {lab: warp_timing(torch, lab, args) for lab, args in instances.items()}
+    rect = [r for lab, r in per.items() if lab.split(" ", 1)[1] in RECT_WARPS]
+    from rpg_open_remode_tpu_torch.ops.accounting import bound_ms
+
+    out = {k: sum(r[k] for r in rect) for k in ("ms", "host_ms", "unfused_ms",
+                                               "unfused_host_ms", "plain_ms", "library_ms")}
+    out.update(bound=bound_ms(sum(r["bytes"] for r in rect), sum(r["flops"] for r in rect)),
+               per_call=per, work="the 3 warps of frame 10 (ref stack, curr, back-warp)")
+    return out
 
 
 def tvl1_timing(torch, eng, work):
@@ -1853,21 +2166,26 @@ def log_timings(rows):
                      f"{share(lu['scoring']):.3f}, per-pixel loops {share(lu['per_pixel']):.3f}; "
                      f"one-thread-per-pixel loop by the schedule model (not measured) "
                      f"{share(lu['pixel_loop_model']):.3f}")
-        if "ms_random" in r:
-            extra = (f", random coordinates {r['ms_random']:.4f} ms; grid_sample "
-                     f"{r['library_ms']:.4f} ms (max err {r['library_err']:.3g} of the "
-                     f"image's largest magnitude)")
+        if "unfused_ms" in r:
+            extra = (f"; the unfused route {r['unfused_ms']:.4f} ms device, host clock "
+                     f"{r['unfused_host_ms']:.4f} ms against the fused {r['host_ms']:.4f} ms; "
+                     f"grid_sample {r['library_ms']:.4f} ms")
+        elif "library_ms" in r:
+            extra = (f", grid_sample {r['library_ms']:.4f} ms (max err {r['library_err']:.3g} "
+                     f"of the image's largest magnitude)")
         log(f"  {k}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound'][0]:.4f} ms by {r['bound'][1]}){extra}; {r['work']}")
 
 
-def kernel_timings(torch, dev, P, run640, run720, calls):
-    """Each kernel's time on frame KEEP_FRAME's own inputs (and the warps' on
-    random coordinates too), beside its plain version and its bound; TV-L1
-    also on the 1280x720 run's final state (the shapes of the tiled Pallas
-    kernel, row 5)."""
+def kernel_timings(torch, run640, run720, calls, warps):
+    """Each kernel's time on frame KEEP_FRAME's own inputs beside its plain
+    version and its bound: the sweep, every warp of ``warps`` (size ->
+    label -> arguments) in turns with the unfused route, TV-L1 (also on the
+    1280x720 run's final state, the shapes of the tiled Pallas kernel, row
+    5)."""
     rows = sweep_timings(torch, calls, "over_table")
-    rows.update(resample_timings(torch, dev, calls))
+    for size, instances in warps.items():
+        rows["warp" if size == "640x480" else f"warp {size}"] = warp_timings(torch, instances)
     rows["tvl1"] = tvl1_timing(torch, run640["eng"], "200 iterations at 640x480")
     rows["tvl1 1280x720"] = tvl1_timing(
         torch, run720["eng"], "200 iterations at 1280x720 (the tiled Pallas kernel's shapes)")
@@ -1875,13 +2193,91 @@ def kernel_timings(torch, dev, P, run640, run720, calls):
     return rows
 
 
+# the undistortion run: a mild plumb-bob lens on the 640x480 camera, over
+# the first frames of the over_table sequence (rendered without distortion:
+# the run drives the path, its accuracy is not held)
+UNDISTORT = dict(k1=-0.05, k2=0.01, p1=5e-4, p2=-5e-4)
+UNDISTORT_FRAMES = 12
+
+
+def undistortion_run(torch, P, kernels, frames):
+    """``Depthmap`` with ``init_undistortion_map(**UNDISTORT)`` over
+    UNDISTORT_FRAMES frames and a denoise, the launch counts zeroed just
+    before the keyframe and read just after the denoise: the 1-D resamplers
+    once each per input image (``utils/warp.warp_grid``), and every kernel
+    of the engine's path at least once. The last image's two passes are
+    held bit for bit against their plain versions and timed
+    (``resample_timings``). Returns the counts, errors and timings."""
+    f0 = frames[0]
+    d0 = f0.depth[np.isfinite(f0.depth)]
+    h, w = f0.image.shape
+    eng = P.Depthmap(w, h, CAM_640["fx"], CAM_640["cx"], CAM_640["fy"], CAM_640["cy"])
+    eng.init_undistortion_map(**UNDISTORT)
+    calls = {}
+
+    def keep(kind, args):
+        if kind in ("rows", "cols"):
+            calls[kind] = args
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with intercept(keep):
+        eng.set_reference_image(f0.image, Tcw(f0), d0.min(), d0.max())
+        for fr in frames[1:UNDISTORT_FRAMES]:
+            eng.update(fr.image, Tcw(fr))
+        den = eng.denoised_depthmap(0.5, 200)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    problems = [f"resample_{k}: {launches['resample_' + k]} launches, want {UNDISTORT_FRAMES}"
+                for k in ("rows", "cols") if launches["resample_" + k] != UNDISTORT_FRAMES]
+    problems += [f"{k} not launched" for k in PATH_KERNELS if launches[k] <= 0]
+    if not np.isfinite(den).all():
+        problems.append("non-finite denoised depth")
+    log(f"  {UNDISTORT_FRAMES} frames with the undistortion grid {UNDISTORT}: launches "
+        f"{launches}")
+    if problems:
+        raise AssertionError("the undistortion run: " + "; ".join(problems))
+    from rpg_open_remode_tpu_torch.ops import resample_cuda
+
+    errs = {f"resample_{k}": check_resample(resample_cuda, k, *args, "undistortion, last image")[0]
+            for k, args in calls.items()}
+    rows = resample_timings(torch, calls)
+    log_timings(rows)
+    return dict(launches=launches, errs=errs, timings=rows)
+
+
+def route_turns(torch, P, frames, n=4):
+    """The 640x480 run replayed with the unfused warp route and with the
+    fused kernel in turns (unfused, fused, fused, unfused): the per-frame
+    median of each replay (CUDA events) and its wall time; the depth maps
+    must agree bit for bit."""
+    routes = ("unfused", "fused", "fused", "unfused")[:n]
+    out = {"unfused": [], "fused": [], "wall_unfused": [], "wall_fused": []}
+    depth = {}
+    for which in routes:
+        events = []
+        with unfused_route() if which == "unfused" else contextlib.nullcontext():
+            eng, _, wall = replay(torch, P, frames, CAM_640, events=events)
+        out[which].append(float(np.median([s.elapsed_time(e) for s, e in events[:-1]])))
+        out["wall_" + which].append(wall)
+        depth[which] = eng.depthmap()
+    same = bool(np.array_equal(depth["unfused"], depth["fused"], equal_nan=True))
+    log(f"  640x480 per-frame median, in turns: unfused route {out['unfused']} ms, fused "
+        f"{out['fused']} ms; the depth maps equal bit for bit: {same}")
+    if not same:
+        raise AssertionError("the unfused and fused warp routes give other depth maps")
+    return out
+
+
 def baseline_library(kernels, csrc, build_dir):
     """Build and load the kernels of another checkout's ``csrc`` behind the
     C interface that this package's wrappers call. A ``remode_tvl1`` that
     reports no launch count (the older interface: one launch per
-    iteration) gets a shim that reports ``iterations``."""
+    iteration) gets a shim that reports ``iterations``; a checkout without
+    ``warp.cu`` takes this package's fused warp (both turns then run it)."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib = ctypes.CDLL(str(kernels.build(csrc, build_dir)))
+    sources = [name for name in kernels.SOURCES if (csrc / name).exists()]
+    lib = ctypes.CDLL(str(kernels.build(csrc, build_dir, sources)))
     counts = "int* launches" in (csrc / "tvl1.cu").read_text()
     signatures = {
         "remode_sweep": [P] * 9 + [I] * 5 + [F, I, P],
@@ -1889,6 +2285,8 @@ def baseline_library(kernels, csrc, build_dir):
         "remode_resample_cols": [P] * 3 + [I] * 4 + [P],
         "remode_tvl1": [P] * 10 + [I] * 3 + [F] * 4 + [P] * (2 if counts else 1),
     }
+    if "warp.cu" in sources:
+        signatures["remode_homography_warp"] = kernels._SIGNATURES["remode_homography_warp"]
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -1899,8 +2297,12 @@ def baseline_library(kernels, csrc, build_dir):
             *rest, launches, stream = args
             launches.contents.value = rest[12]
             return lib.remode_tvl1(*rest, stream)
+    if "warp.cu" not in sources:
+        log(f"  {csrc} has no warp.cu: its turns run this package's fused warp")
+    warp = (lib if "warp.cu" in sources else kernels.library()).remode_homography_warp
     return types.SimpleNamespace(
-        remode_sweep=lib.remode_sweep, remode_resample_rows=lib.remode_resample_rows,
+        remode_sweep=lib.remode_sweep, remode_homography_warp=warp,
+        remode_resample_rows=lib.remode_resample_rows,
         remode_resample_cols=lib.remode_resample_cols, remode_tvl1=tvl1)
 
 
@@ -1921,7 +2323,7 @@ def baseline_compare(torch, P, kernels, baseline_dir, calls, frames, run640, run
     per-frame median of the 640x480 run in turns (old, new, new, old), and
     profile a replay with each. The profiled replays' depth maps must agree
     bit for bit, since both versions equal the plain ones."""
-    from rpg_open_remode_tpu_torch.ops import denoise_cuda, resample_cuda, sweep_cuda
+    from rpg_open_remode_tpu_torch.ops import denoise_cuda, sweep_cuda, warp_cuda
     from rpg_open_remode_tpu_torch.utils.profiling import graph_ms
 
     csrc = Path(baseline_dir) / "rpg_open_remode_tpu_torch" / "csrc"
@@ -1933,16 +2335,9 @@ def baseline_compare(torch, P, kernels, baseline_dir, calls, frames, run640, run
             "sweep full": lambda: sweep_cuda.disparity_sweep(*calls["sweep full"]),
             "sweep coarse": lambda: sweep_cuda.disparity_sweep(*calls["sweep coarse"]),
         }
-        rng = np.random.default_rng(2)
-        for kind in ("rows", "cols"):
-            fn = getattr(resample_cuda, f"resample_{kind}")
-            for lab in WARP_LABELS.values():
-                img, coord = calls[(kind, lab)]
-                n = img.shape[-2] if kind == "rows" else img.shape[-1]
-                rand = torch.tensor(rng.uniform(0, n - 1, tuple(coord.shape)).astype(np.float32),
-                                    device=coord.device)
-                cases[f"{kind} {lab}"] = (lambda f=fn, a=img, b=coord: f(a, b))
-                cases[f"{kind} {lab} random"] = (lambda f=fn, a=img, b=rand: f(a, b))
+        for lab in RECT_WARPS:
+            cases[f"warp {lab}"] = (
+                lambda a=warp_call(calls["warps"][lab]): warp_cuda.homography_warp(*a))
         for size, run in (("640x480", run640), ("1280x720", run720)):
             eng = run["eng"]
             g, mu = tvl1_weights(eng.state, eng.cfg), eng.state.mu.contiguous()
@@ -2046,17 +2441,31 @@ def main() -> int:
     work = prof.pop("work")
 
     phase("main path 1280x720 (80 frames, focal-scaled config, denoise)")
-    run720 = drive(torch, P, kernels, make_frames(1280, 720, CAM_720, 80), CAM_720)
+    run720 = drive(torch, P, kernels, make_frames(1280, 720, CAM_720, 80), CAM_720,
+                   keep_frame=KEEP_FRAME, first=KEEP_FRAME)
     report_run("1280x720", run720)
     log(f"  beside the JAX hd_1280x720 row {HD_ROW}")
+    warps720 = warp_instances(frame_warps(run720), "1280x720")
+    for lab, args in warps720.items():
+        errs["warp"] = max(errs["warp"], check_warp(args, lab))
+
+    phase(f"752x480 ({FHD_FRAMES} frames through Depthmap at for_camera({CAM_752['fx']}); "
+          f"frame {KEEP_FRAME}'s warps, whose output rows end in a partial tile)")
+    run752, warps752 = warp_run(torch, P, kernels, "752x480", 752, 480, CAM_752, FHD_FRAMES)
+    errs["warp"] = max(errs["warp"], run752["warp_err"])
 
     phase(f"the 1920x1080 configuration ({FHD_FRAMES} frames through Depthmap at "
           f"for_camera(1443.6); frame {KEEP_FRAME}'s own kernel inputs; kernel timings)")
     t_phase = time.perf_counter()
-    fhd = fhd_run(torch, dev, P, kernels)
+    fhd = fhd_run(torch, P, kernels)
     for k, e in fhd["errs"].items():
         errs[k] = max(errs[k], e)
     log(f"  phase took {time.perf_counter() - t_phase:.1f} s")
+
+    phase("the lens-undistortion path (the 1-D resamplers of utils/warp.warp_grid)")
+    undist = undistortion_run(torch, P, kernels, frames640)
+    for k, e in undist["errs"].items():
+        errs[k] = max(errs[k], e)
 
     phase("keyframe lifecycle accuracy (eval.py's keyframe segments, 640x480, hardened scene)")
     fast = make_frames(640, 480, CAM_640, 190, step=peval.FAST_STEP)
@@ -2064,8 +2473,7 @@ def main() -> int:
 
     phase(f"depth propagation (switch {KEEP_SWITCH} of the fast_motion_propagated run)")
     prop = propagation(torch, P, kept)
-    errs["resample_rows"] = max(errs["resample_rows"], prop["resample_rows"]["max_abs_err"])
-    errs["resample_cols"] = max(errs["resample_cols"], prop["resample_cols"]["max_abs_err"])
+    errs["warp"] = max(errs["warp"], prop["warp"]["max_abs_err"])
     prop_run = profile_lifecycle(torch, P, fast)
     del kept, fast
 
@@ -2086,8 +2494,18 @@ def main() -> int:
     scripts = scripts_phase()
     log(f"  phase took {time.perf_counter() - t_phase:.1f} s")
 
-    phase(f"kernel timings (frame {KEEP_FRAME} of the 640x480 run; TV-L1 also at 1280x720)")
-    rows = kernel_timings(torch, dev, P, run640, run720, calls)
+    phase(f"kernel timings (frame {KEEP_FRAME} of the 640x480, 752x480 and 1280x720 runs, the "
+          f"warps in turns with the unfused route; TV-L1 also at 1280x720)")
+    rows = kernel_timings(torch, run640, run720, calls, {
+        "640x480": warp_instances(calls["warps"], "640x480"), "752x480": warps752,
+        "1280x720": warps720})
+
+    phase("the 640x480 run with the unfused warp route and with the fused kernel, in turns; "
+          "a profiled replay with the unfused route")
+    turns = route_turns(torch, P, frames640)
+    with unfused_route():
+        prof_unfused, _ = profile_run(torch, P, frames640, CAM_640, "640x480 run, unfused route",
+                                      float(np.mean(turns["wall_unfused"])))
 
     base = None
     if opts.baseline:
@@ -2097,8 +2515,10 @@ def main() -> int:
 
     out = []
     for k in KERNELS:
-        r = rows["sweep full" if k == "sweep" else k]
-        entry = dict(name=k, route="cuda", **KERNELS[k], launches=run640["launches"][k],
+        path = undist if k.startswith("resample") else run640
+        r = (rows["sweep full"] if k == "sweep" else undist["timings"][k]
+             if k.startswith("resample") else rows[k])
+        entry = dict(name=k, route="cuda", **KERNELS[k], launches=path["launches"][k],
                      max_abs_err=errs[k], ms=r["ms"], plain_ms=r["plain_ms"],
                      bound_ms=r["bound"][0], bound_by=r["bound"][1],
                      library_ms=r.get("library_ms"),
@@ -2109,11 +2529,30 @@ def main() -> int:
                          lane_efficiency_per_pixel=share(r["lanes"]["per_pixel"]),
                          ms_coarse=c["ms"], plain_ms_coarse=c["plain_ms"])
         if k.startswith("resample"):
-            pr = prop[k]
-            entry.update(ms_random_coords=r["ms_random"], launches_per_switch=pr["calls"],
-                         ms_switch=pr["ms"], plain_ms_switch=pr["plain_ms"],
-                         bound_ms_switch=pr["bound"][0], library_ms_switch=pr["library_ms"],
-                         run_ms_reseeds=prop_run["kernels"][k]["reseeds"]["ms"])
+            entry.update(path="the undistortion run (utils/warp.warp_grid)",
+                         launches_unfused_640x480=prof_unfused["kernels"][k]["launches"])
+        if k == "warp":
+            pr = prop["warp"]
+            per = {lab: {f: x[f] for f in ("ms", "host_ms", "unfused_ms", "unfused_host_ms",
+                                            "plain_ms", "library_ms", "share")}
+                   | dict(bound_ms=x["bound"][0], bound_by=x["bound"][1])
+                   for rw in [rows[key] for key in rows if key.startswith("warp")]
+                   + [fhd["timings"]["warp"]] for lab, x in rw["per_call"].items()}
+            entry.update(
+                host_ms=r["host_ms"], unfused_ms=r["unfused_ms"],
+                unfused_host_ms=r["unfused_host_ms"], per_call=per,
+                launches_per_switch=pr["calls"], ms_switch=pr["ms"],
+                unfused_ms_switch=pr["unfused_ms"], host_ms_switch=pr["host_ms"],
+                unfused_host_ms_switch=pr["unfused_host_ms"], plain_ms_switch=pr["plain_ms"],
+                bound_ms_switch=pr["bound"][0], library_ms_switch=pr["library_ms"],
+                run_ms_reseeds=prop_run["kernels"][k]["reseeds"]["ms"],
+                reseed_ms=prop["reseed_ms"], reseed_ms_unfused=prop["reseed_ms_unfused"],
+                device_ops_per_switch=prop["device_ops_per_switch"],
+                device_ops_per_switch_unfused=prop["device_ops_per_switch_unfused"],
+                frame_ms_median_turns=turns["fused"], frame_ms_median_turns_unfused=turns["unfused"],
+                busy_share_wall=prof["busy_share_wall"],
+                busy_share_wall_unfused=prof_unfused["busy_share_wall"],
+                launches_752x480=run752["launches"][k], launches_1280x720=run720["launches"][k])
         if k == "tvl1":
             t7 = rows["tvl1 1280x720"]
             entry.update(ms_1280x720=t7["ms"], plain_ms_1280x720=t7["plain_ms"],
@@ -2121,10 +2560,12 @@ def main() -> int:
         # the 1920x1080 run (for_camera(1443.6), patch 15, 383 planes): its
         # launches, and the kernel timed on its frame-10 inputs (the sweep's
         # full pass; the 3 warps' passes; TV-L1 on its final state)
-        f = fhd["timings"]["sweep full" if k == "sweep" else k]
-        entry.update(launches_1920x1080=fhd["run"]["launches"][k], ms_1920x1080=f["ms"],
-                     plain_ms_1920x1080=f["plain_ms"], bound_ms_1920x1080=f["bound"][0],
-                     library_ms_1920x1080=f.get("library_ms"))
+        f = fhd["timings"].get("sweep full" if k == "sweep" else k)
+        entry["launches_1920x1080"] = fhd["run"]["launches"][k]
+        if f is not None:
+            entry.update(ms_1920x1080=f["ms"], plain_ms_1920x1080=f["plain_ms"],
+                         bound_ms_1920x1080=f["bound"][0],
+                         library_ms_1920x1080=f.get("library_ms"))
         if k == "sweep":
             c = fhd["timings"]["sweep coarse"]
             entry.update(ms_coarse_1920x1080=c["ms"], plain_ms_coarse_1920x1080=c["plain_ms"],
@@ -2145,8 +2586,9 @@ def main() -> int:
                          library_ms_slab_slowest=slow["library_ms"],
                          slab_slowest=f"{slow['name']} {slow['shape']}")
         out.append(entry)
-    log("  library_ms: one grid_sample call per resample pass; no single PyTorch call computes "
-        "the sweep or TV-L1 (null)")
+    log("  library_ms: one grid_sample call per resample pass, and per warp (a 2-D bilinear "
+        "sample at (u, v), not the two-pass value); no single PyTorch call computes the sweep "
+        "or TV-L1 (null)")
     log(f"== total {time.perf_counter() - t_start:.1f} s")
     if opts.out:
         keep = ("frames", "launches", "wall_ms", "frame_ms_median", "frame_ms_p90",
@@ -2159,7 +2601,10 @@ def main() -> int:
             json.dump(plain(dict(
                 card=smi, build_s=kernels.build_seconds, kernels=out,
                 run640={k: run640[k] for k in keep}, run720={k: run720[k] for k in keep},
-                timings=rows, work=work, profile=prof, lifecycle=life, propagation=prop,
+                timings=rows, work=work, profile=prof, profile_unfused=prof_unfused,
+                route_turns=turns, run752={k: run752[k] for k in keep},
+                undistortion=dict(launches=undist["launches"], timings=undist["timings"]),
+                lifecycle=life, propagation=prop,
                 profile_lifecycle=prop_run, cli=cli_out, ring=ring, mesh=mesh,
                 launch_figures=launch, fhd=dict(run={k: fhd["run"][k] for k in keep},
                                                 peaks=fhd["peaks"], timings=fhd["timings"]),

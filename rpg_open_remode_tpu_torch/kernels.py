@@ -6,8 +6,8 @@ library with a plain C interface and loaded with ``ctypes``. The library is
 cached under ``build/torch_kernels/`` beside the package, named by a hash of
 the sources and flags, so an edited source is rebuilt.
 
-Each wrapper (``ops/sweep_cuda.py``, ``ops/resample_cuda.py``,
-``ops/denoise_cuda.py``) adds to ``LAUNCHES[name]`` the kernel launches it
+Each wrapper (``ops/sweep_cuda.py``, ``ops/warp_cuda.py``,
+``ops/resample_cuda.py``, ``ops/denoise_cuda.py``) adds to ``LAUNCHES[name]`` the kernel launches it
 makes, and nowhere else, so a run can show that the main path went through
 the kernels.
 """
@@ -26,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-SOURCES = ("sweep.cu", "resample.cu", "tvl1.cu")
+SOURCES = ("sweep.cu", "warp.cu", "resample.cu", "tvl1.cu")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 # -fmad=false: no FMA contraction, so each kernel rounds every operation as
@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 )
 
 # launches per kernel; plain integers, reset with reset_launches()
-LAUNCHES = {"sweep": 0, "resample_rows": 0, "resample_cols": 0, "tvl1": 0}
+LAUNCHES = {"sweep": 0, "warp": 0, "resample_rows": 0, "resample_cols": 0, "tvl1": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +48,7 @@ _SIGNATURES = {
     "remode_sweep": [_P] * 9 + [_I] * 5 + [_F, _I, _P],
     "remode_sweep_lanes": [_P] * 9 + [_I] * 5 + [_F, _I, _P, _P],
     "remode_sweep_occupancy": [_I, _I, _P, _P],
+    "remode_homography_warp": [_P] * 5 + [_I] * 6 + [_F] * 2 + [_I, _P],
     "remode_resample_rows": [_P] * 3 + [_I] * 4 + [_P],
     "remode_resample_cols": [_P] * 3 + [_I] * 4 + [_P],
     "remode_tvl1": [_P] * 10 + [_I] * 3 + [_F] * 4 + [_P, _P],
@@ -74,27 +75,28 @@ def _nvcc() -> str:
     return path
 
 
-def _library_path(csrc: Path, build_dir: Path) -> Path:
+def _library_path(csrc: Path, build_dir: Path, sources=SOURCES) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in sources:
+        h.update(name.encode())
         h.update((csrc / name).read_bytes())
     return build_dir / f"libremode_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _build(csrc: Path, target: Path) -> None:
+def _build(csrc: Path, target: Path, sources=SOURCES) -> None:
     nvcc = _nvcc()
     target.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
-        objs = [Path(tmp) / (name + ".o") for name in SOURCES]
+        objs = [Path(tmp) / (name + ".o") for name in sources]
         procs = [
             subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", str(csrc / name), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
-            for name, obj in zip(SOURCES, objs)
+            for name, obj in zip(sources, objs)
         ]
         errors = []
-        for name, p in zip(SOURCES, procs):
+        for name, p in zip(sources, procs):
             out, _ = p.communicate()
             if p.returncode != 0:
                 errors.append(f"{name}:\n{out}")
@@ -110,13 +112,13 @@ def _build(csrc: Path, target: Path) -> None:
         os.replace(tmp_lib, target)
 
 
-def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
-    """The shared library of the kernels in ``csrc``, built unless a cached
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR, sources=SOURCES) -> Path:
+    """The shared library of ``sources`` in ``csrc``, built unless a cached
     copy matches the sources and flags. Raises if nvcc is missing or the
     build fails."""
-    target = _library_path(Path(csrc), Path(build_dir))
+    target = _library_path(Path(csrc), Path(build_dir), tuple(sources))
     if not target.exists():
-        _build(Path(csrc), target)
+        _build(Path(csrc), target, tuple(sources))
     return target
 
 

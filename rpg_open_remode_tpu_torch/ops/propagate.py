@@ -7,9 +7,9 @@ an inverse-depth plane sweep of homography warps:
 
   1. ``PLANES`` fronto-parallel planes of the old keyframe span the carried
      pixels' inverse-depth range; each plane's homography warps the masked
-     posterior stack ``[mu*m, sigma_sq*m, m]`` onto the new grid with one
-     two-pass warp (``utils/warp.homography_warp``: ``resample_rows`` then
-     ``resample_cols`` at C=3, the CUDA kernels on the GPU);
+     posterior stack ``[mu*m, sigma_sq*m, m]`` onto the new grid with the
+     two-pass warp (``ops/warp_cuda.homography_warp`` at C=3, the fused
+     CUDA kernel on the GPU), ``WARP_CHUNK`` planes a call;
   2. a sample is accepted where it is self-consistent: its depth, in z,
      lies within 0.75 of a plane spacing of the plane that warped it, and
      its analytic source coordinates fall inside the old image;
@@ -28,8 +28,8 @@ Device work: the 96 homographies ``H_back = inv(K (R + t n^T / d) K^-1)``
 are built in one batched ``torch.linalg.inv_ex`` on the engine's device,
 and the plane range stays on the device as 0-d tensors, so the sweep reads
 nothing on the host (the per-switch host read of the range is not taken).
-Each plane is one warp (two kernel launches) and some tens of small
-elementwise ops.
+The planes are warped ``WARP_CHUNK`` at a time (one kernel launch a chunk);
+each plane then takes some tens of small elementwise ops, in plane order.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ import torch
 
 from rpg_open_remode_tpu_torch.config import ConvergenceState, RemodeConfig
 from rpg_open_remode_tpu_torch.models.state import SeedState
+from rpg_open_remode_tpu_torch.ops import warp_cuda
 from rpg_open_remode_tpu_torch.utils import se3
 from rpg_open_remode_tpu_torch.utils import warp as warp_ops
 from rpg_open_remode_tpu_torch.utils.camera import PinholeCamera
@@ -48,6 +49,10 @@ PLANES = 96            # inverse-depth sweep planes
 SIGMA_INFLATE = 4.0    # posterior-variance inflation for the new viewpoint
 MIN_INLIER = 0.5       # carry mask: minimum old inlier-ratio mean
 NARROW_FRAC = 0.25     # carry mask: sigma_sq below this fraction of max
+# planes warped by one launch: ceil(96 / 16) = 6 launches a reseed. A
+# chunk's output (C=3) and (u, v) take 16 x 5 float32 planes of the image:
+# 98 MB at 640x480, 664 MB at 1920x1080
+WARP_CHUNK = 16
 
 
 def carry_mask(old_state: SeedState) -> torch.Tensor:
@@ -115,8 +120,11 @@ def propagate_depth(old_state: SeedState, T_curr_world: torch.Tensor, scene,
     best_sig = torch.zeros((height, width), device=dev)
     valid = torch.zeros((height, width), dtype=torch.bool, device=dev)
     for k in range(PLANES):
+        if k % WARP_CHUNK == 0:
+            chunk = warp_cuda.homography_warp(
+                stack, H_back[k:k + WARP_CHUNK].contiguous(), height, width)
+        warped, u_a, v_a = (x[k % WARP_CHUNK] for x in chunk)
         inv_d = inv_grid[k]
-        warped, u_a, v_a = warp_ops.homography_warp(stack, H_back[k], height, width)
         m_w = torch.clamp(warped[2], min=1e-6)
         mu_s = warped[0] / m_w
         rx = (u_a - cx) / fx

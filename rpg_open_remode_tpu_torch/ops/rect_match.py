@@ -325,6 +325,7 @@ def prepare_sweep(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
     # the pad stays an exact integer output-origin shift, outside the product
     curr_img_r, _, _ = warp_ops.homography_warp(
         curr_img, g["H_rect_to_curr"] @ M_aff, rect_h, rect_w + 2 * pad, x0=-float(pad),
+        want_uv=False,
     )
     disp_lo, disp_hi = k_lo, k_hi
 
@@ -366,7 +367,8 @@ def match_rectified(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
     H_rect_to_curr = g["H_rect_to_curr"]
     found_f = found_r.float()
     out_stack = torch.stack([disp_best * found_f, best * found_f, found_f])
-    back, _, _ = warp_ops.homography_warp(out_stack, H_ref_to_rect, height, width)
+    back, _, _ = warp_ops.homography_warp(out_stack, H_ref_to_rect, height, width,
+                                          want_uv=False)
     found_b = back[2]
     wgt = torch.clamp(found_b, min=1e-6)
     disp_b = back[0] / wgt

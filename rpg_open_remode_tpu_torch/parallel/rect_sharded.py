@@ -9,7 +9,7 @@ rectification warps and the sweep are global, so each rank
   2. computes one horizontal band of the rect grid, indexed by its spatial
      rank ``ty_idx * n_tx + tx_idx``, on a slab with a 32-row halo on each
      side (clamped at the grid's edges; trimmed after the sweep): the band
-     warps (the CUDA resamplers), the band's own coarse-pass gate (no
+     warps (the fused CUDA warp kernel), the band's own coarse-pass gate (no
      collective, so bands may differ) and the sweep (the CUDA kernel, on
      the slab's shape),
   3. gathers the three result maps and back-warps its own reference tile.
@@ -105,11 +105,12 @@ def match_rectified_sharded(state_tile, curr_img: torch.Tensor, T_curr_ref: torc
         active,
     ])
 
-    def band_warp(img_stack, H, w_out, x0=0.0):
+    def band_warp(img_stack, H, w_out, x0=0.0, want_uv=True):
         # the slab as the warp's output window: exactly the single path's
         # rows (the JAX package folds the origin into H, for its
         # static-origin Pallas path, and so rounds differently)
-        return warp_ops.homography_warp(img_stack, H, ext, w_out, x0=x0, y0=float(y0_ext))
+        return warp_ops.homography_warp(img_stack, H, ext, w_out, x0=x0, y0=float(y0_ext),
+                                        want_uv=want_uv)
 
     ref_r, u_s, v_s = band_warp(ref_stack, g["H_rect_to_ref"], rect_w)
     # ref-footprint validity is analytic: the resampler clamp-extends
@@ -151,7 +152,7 @@ def match_rectified_sharded(state_tile, curr_img: torch.Tensor, T_curr_ref: torc
     M_aff = torch.stack([torch.stack([o, z, -kbase]), torch.stack([z, o, z]),
                          torch.stack([z, z, o])])
     curr_r, _, _ = band_warp(curr_img, g["H_rect_to_curr"] @ M_aff, rect_w + 2 * pad,
-                             x0=-float(pad))
+                             x0=-float(pad), want_uv=False)
     ref_img_r = ref_r[0].contiguous()
 
     if cfg.coarse_to_fine:
@@ -178,7 +179,7 @@ def match_rectified_sharded(state_tile, curr_img: torch.Tensor, T_curr_ref: torc
     # gather the sweep results, back-warp this rank's reference tile
     full_out = torch.cat(collectives.all_gather(mesh, band_out, "sp"), dim=1)
     back, _, _ = warp_ops.homography_warp(full_out, g["H_ref_to_rect"], th, tw,
-                                          x0=float(x0_t), y0=float(y0_t))
+                                          x0=float(x0_t), y0=float(y0_t), want_uv=False)
     found_t = back[2]
     wgt = torch.clamp(found_t, min=1e-6)
     disp_t = back[0] / wgt

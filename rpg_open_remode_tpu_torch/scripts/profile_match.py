@@ -11,6 +11,10 @@ phases are measured on the first frame the warm-up did not consume:
   sweep kernel      the disparity sweep on those (on a CUDA tensor, the CUDA
                     kernel of ``csrc/sweep.cu``)
   back-warp (3ch)   three rect planes back onto the reference grid
+
+(each warp one launch of the fused kernel of ``csrc/warp.cu`` on a CUDA
+tensor; the curr warp and the back-warp without u and v, as the matcher
+calls them)
   FULL match        epipolar.match on frame i of 0 .. K - 1
 
 with the same three columns as ``profile_update`` (K = 16 calls a phase;
@@ -87,10 +91,10 @@ def profile(width, height, device="cuda", k=K, warmup=WARMUP):
             ref_stack, g["H_rect_to_ref"], rect_h, rect_w)[0]),
         ("curr warp (wide)", lambda i: warp_ops.homography_warp(
             prep_image(imgs[i]), g["H_rect_to_curr"], rect_h, rect_w + 2 * pad,
-            x0=-float(pad))[0]),
+            x0=-float(pad), want_uv=False)[0]),
         ("sweep kernel", lambda i: sweep_cuda.disparity_sweep(*sweep_args)[1]),
         ("back-warp (3ch)", lambda i: warp_ops.homography_warp(
-            out_stack, g["H_ref_to_rect"], height, width)[0]),
+            out_stack, g["H_ref_to_rect"], height, width, want_uv=False)[0]),
         ("FULL match", lambda i: epipolar.match(
             state, prep_image(imgs[i]), se3.compose(Ts[i], state.T_world_ref), cam,
             cfg).best_ncc),

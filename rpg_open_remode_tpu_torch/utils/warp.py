@@ -11,7 +11,9 @@ where ``(u, v)`` are the source coordinates of output pixel ``(x_o, y_o)``
 under H and ``q(X, y) = v(x~, y)`` with ``x~`` solving ``u(x~, y) = X``.
 Pass 1 samples each source column at its own row, so the result differs
 slightly from a 2-D bilinear sample at (u, v); the engine keeps the
-two-pass value. The passes are ``ops/resample_cuda.resample_rows`` and
+two-pass value. ``homography_warp`` runs coordinates and both passes as one
+kernel on the GPU (``ops/warp_cuda.py``, ``csrc/warp.cu``); ``warp_grid``
+runs the two 1-D passes ``ops/resample_cuda.resample_rows`` and
 ``resample_cols`` (CUDA kernels on the GPU).
 """
 
@@ -19,18 +21,9 @@ from __future__ import annotations
 
 import torch
 
-from rpg_open_remode_tpu_torch.ops import resample_cuda
+from rpg_open_remode_tpu_torch.ops import resample_cuda, warp_cuda
+from rpg_open_remode_tpu_torch.ops.warp_cuda import safe as _safe
 from rpg_open_remode_tpu_torch.utils.interp import bilinear
-
-_EPS = 1e-8
-
-
-def _safe(den):
-    return torch.where(
-        torch.abs(den) < _EPS,
-        torch.where(den >= 0, torch.full_like(den, _EPS), torch.full_like(den, -_EPS)),
-        den,
-    )
 
 
 def _as_stack(img: torch.Tensor) -> torch.Tensor:
@@ -74,36 +67,24 @@ def homography_warp(
     out_width: int,
     x0: float = 0.0,
     y0: float = 0.0,
+    want_uv: bool = True,
 ):
     """Warp ``img [..., Hs, Ws]`` by homography ``H`` (output pixel -> source
     pixel) onto the grid ``x in [x0, x0+out_width)``, ``y in [y0,
     y0+out_height)``.
 
     Returns ``(warped [..., Ho, Wo], u, v)`` with (u, v) the source
-    coordinates of each output pixel; out-of-image samples are
-    clamp-extended, and callers mask with (u, v) where that matters.
+    coordinates of each output pixel (None unless ``want_uv``, which spares
+    the kernel writing them); out-of-image samples are clamp-extended, and
+    callers mask with (u, v) where that matters. One
+    ``warp_cuda.homography_warp`` call (one kernel launch on the GPU).
     """
-    ws = img.shape[-1]
-    dev = img.device
-    a, b, c = H[0, 0], H[0, 1], H[0, 2]
-    d, e, f = H[1, 0], H[1, 1], H[1, 2]
-    g, h, i = H[2, 0], H[2, 1], H[2, 2]
-
-    yo = y0 + torch.arange(out_height, dtype=torch.float32, device=dev)[:, None]
-    xs = torch.arange(ws, dtype=torch.float32, device=dev)[None, :]
-
-    # pass 1: for source column X and output row yo, sample row
-    # q(X, yo) = v(x~, yo) where u(x~, yo) = X:
-    #   x~ = (X (h yo + i) - b yo - c) / (a - X g)
-    hy_i = h * yo + i
-    x_t = (xs * hy_i - b * yo - c) / _safe(a - xs * g)
-    q = (d * x_t + e * yo + f) / _safe(g * x_t + hy_i)
-    xo = x0 + torch.arange(out_width, dtype=torch.float32, device=dev)[None, :]
-    u, v = homography_coords(H, xo, yo)
-
-    mid = resample_rows(img, q)
-    out = resample_cols(mid, u.expand(out_height, out_width))
-    return out, u, v
+    out, u, v = warp_cuda.homography_warp(
+        _as_stack(img), H.to(torch.float32).reshape(1, 3, 3).contiguous(), out_height,
+        out_width, x0, y0, want_uv,
+    )
+    out = out[0].reshape(tuple(img.shape[:-2]) + (out_height, out_width))
+    return out, (u[0] if want_uv else None), (v[0] if want_uv else None)
 
 
 def warp_grid(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -167,3 +167,22 @@ def test_updates_after_propagated_switch(frames, jax_run):
     assert both.mean() > 0.1, both.mean()
     d_mu = np.abs(got["mu"] - want["mu"])[both] / (dmax - dmin)
     assert np.quantile(d_mu, 0.99) <= 1e-3, np.quantile(d_mu, 0.99)
+
+
+@pytest.mark.parametrize("chunk", [1, 7])
+def test_batched_reseed_equals_per_plane_loop(frames, jax_run, monkeypatch, chunk):
+    """The reseed warps its planes ``WARP_CHUNK`` at a time; one plane a
+    warp (the per-plane loop) and a chunk that leaves a ragged last batch
+    give the same five outputs bit for bit."""
+    from rpg_open_remode_tpu_torch.ops import propagate as pprop
+
+    new = frames[SWITCH]
+    pcfg = P.RemodeConfig(num_planes=96, propagate_depth=True)
+    args = (P.state_from_numpy(jax_run["pre"], device="cpu"), torch.tensor(_Tcw(new)),
+            PScene.create(*_bounds(new), pcfg, device="cpu"),
+            PCam.create(CAM["fx"], CAM["fy"], CAM["cx"], CAM["cy"], device="cpu"), pcfg)
+    batched = pprop.propagate_depth(*args)
+    assert float(batched[4].float().mean()) > 0.15
+    monkeypatch.setattr(pprop, "WARP_CHUNK", chunk)
+    for got, want in zip(pprop.propagate_depth(*args), batched):
+        assert torch.equal(got, want)
