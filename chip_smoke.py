@@ -53,6 +53,23 @@ with each route in turns and must give the same depth map bit for bit. The
 1-D kernels stay on the path of the lens-undistortion grid
 (``Depthmap.init_undistortion_map``), which a short run of its own drives.
 
+The engine's compiled programs (``models/programs.py``): on the card every
+``Depthmap.update``, each frame of ``update_chunk``, every keyframe seed and
+every ring slot's update is one CUDA graph replay, so the timed runs above
+and after go through the graphs; the runs that watch the kernels' inputs
+(``intercept``) drive the eager ``update_step`` on the engine's state
+(``eager_update``), since a replay calls no wrapper. The ``graphs`` phase
+holds the replays against the eager step bit for bit: the 200-frame
+over_table run's state at frames 10, 100 and 199 and its denoised map, a
+sequence that reaches all three matcher regimes (the host's choice against
+the device's on every frame), the undistortion run, two propagated
+switches, ``update_chunk`` with K = 16, and a ring of 4 against four eager
+chains, with equal launch counts; it runs 54 replayed frames and a
+replayed propagated switch under ``torch.cuda.set_sync_debug_mode("error")``,
+and times graph against eager in turns at 640x480, 1280x720 and 1920x1080
+(CUDA events and host clock), with the busy share of a replayed run, the
+switch, the chunk, the captures and the graph pools.
+
 ``--baseline DIR`` also builds the kernels of another checkout's
 ``rpg_open_remode_tpu_torch/csrc`` (for example the parent commit, unpacked
 with ``git archive``) in a temporary directory, times both versions on the
@@ -79,6 +96,7 @@ import argparse  # noqa: E402
 import contextlib  # noqa: E402
 import ctypes  # noqa: E402
 import dataclasses  # noqa: E402
+import functools  # noqa: E402
 import json  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
@@ -449,8 +467,11 @@ def launch_figures(sizes):
 def intercept(hook):
     """Call ``hook(kind, args)`` before every sweep ('sweep'), fused warp
     ('warp') and 1-D resampling pass ('rows', 'cols') that the engine makes
-    inside the block (no hook: no change). The wrappers themselves are
-    untouched, so their launch counts are too."""
+    inside the block (no hook: no change). A coarse sweep whose device gate
+    is off (launched, it scores nothing) is 'sweep off'; its gate is read on
+    the host, so hooks go with eager steps only. The wrappers themselves are
+    untouched, so their launch counts are too. A CUDA graph replay calls no
+    wrapper: instrumented runs drive the eager step (``eager_update``)."""
     if hook is None:
         yield
         return
@@ -460,10 +481,16 @@ def intercept(hook):
                (resample_cuda, "resample_rows", "rows"), (resample_cuda, "resample_cols", "cols"))
     saved = [getattr(mod, name) for mod, name, _ in targets]
 
+    import torch
+
     def wrap(kind, fn):
-        def call(*args):
-            hook(kind, args)
-            return fn(*args)
+        def call(*args, **kw):
+            # a capture's calls launch nothing, and its tensors live in the
+            # graph's pool: not shown
+            if not torch.cuda.is_current_stream_capturing():
+                gate = kw.get("gate")
+                hook(kind if gate is None or bool(gate) else "sweep off", args)
+            return fn(*args, **kw)
         return call
 
     for (mod, name, kind), fn in zip(targets, saved):
@@ -485,6 +512,24 @@ def make_frames(width, height, cam, n_frames, step=0.023):
     return frames
 
 
+def eager_update(eng, img, T):
+    """``eng.update`` as the eager ``update_step`` on the engine's own state
+    buffers, with the regime its programs would choose: the same result and
+    launches as a replay, through the Python wrappers (which a replay does
+    not call), so ``intercept`` sees every kernel input."""
+    import torch
+
+    from rpg_open_remode_tpu_torch.models.depthmap import update_step
+    from rpg_open_remode_tpu_torch.models.state import copy_into
+
+    prog = eng.programs
+    T32 = np.asarray(T, np.float32)
+    new, stats = update_step(prog.state, eng.input_image(img), torch.tensor(T32, device=eng.device),
+                             eng.cam, eng.cfg, prog.regime(T32))
+    copy_into(prog.state, new)
+    return stats
+
+
 def replay(torch, P, frames, cam, kernels=None, events=None, kept=None, hook=None):
     """Set the keyframe on frames[0], update on the rest, denoise. With
     ``kernels`` the launch counts are zeroed just before the keyframe;
@@ -493,8 +538,10 @@ def replay(torch, P, frames, cam, kernels=None, events=None, kept=None, hook=Non
     frame's state, image and pose, and, per frame from COARSE_FROM to it,
     every sweep and warp input the engine passes to the kernels; ``hook(i,
     kind, args)`` (not with ``kept``) sees every sweep and warp call of frame
-    i. Returns (engine,
-    denoised, wall ms from the keyframe to the denoise's end)."""
+    i. The updates are graph replays (``Depthmap.update``) except on the
+    frames that ``kept`` or ``hook`` watch, which take ``eager_update``.
+    Returns (engine, denoised, wall ms from the keyframe to the denoise's
+    end)."""
     f0 = frames[0]
     d0 = f0.depth[np.isfinite(f0.depth)]
     height, width = f0.image.shape
@@ -523,8 +570,9 @@ def replay(torch, P, frames, cam, kernels=None, events=None, kept=None, hook=Non
                 kept.update(state=eng.state, img=fr.image, T=T)
             calls = kept.setdefault("calls", {}).setdefault(i, [])
             frame_hook = (lambda kind, args: calls.append((kind, args)))
+        update = eng.update if frame_hook is None else functools.partial(eager_update, eng)
         with intercept(frame_hook):
-            timed(lambda: eng.update(fr.image, T))
+            timed(lambda: update(fr.image, T))
     den = timed(lambda: eng.denoised_depthmap(0.5, 200))
     torch.cuda.synchronize()
     return eng, den, (time.perf_counter() - t0) * 1e3
@@ -619,7 +667,7 @@ def frame_warps(run):
     branch a near-zero baseline takes)."""
     calls = run["kept"]["calls"][KEEP_FRAME]
     out = {WARP_LABELS[args[0].shape[0]]: args for kind, args in calls if kind == "warp"}
-    kinds = [kind for kind, _ in calls if kind != "sweep"]
+    kinds = [kind for kind, _ in calls if not kind.startswith("sweep")]
     if sorted(out) != sorted(RECT_WARPS) or kinds != ["warp"] * 3:
         raise AssertionError(f"frame {KEEP_FRAME} made the calls {kinds}")
     out["pure rotation"] = rotation_warp(run)
@@ -733,6 +781,7 @@ def size_run(torch, P, kernels, label, width, height, cam, n_frames):
     against the plain versions."""
     frames = make_frames(width, height, cam, n_frames)
     run = drive(torch, P, kernels, frames, cam, keep_frame=KEEP_FRAME, first=1)
+    run["rendered"] = frames
     cfg = run["eng"].cfg
     log(f"  config for_camera({cam['fx']}): patch {cfg.patch_side}, {cfg.num_planes} "
         f"planes, disp_pad {cfg.disp_pad}")
@@ -813,8 +862,11 @@ def run_work(torch, calls):
     tot = {k: dict(calls=0, pairs=0.0, bound_ms=0.0, busy_frames=[], scoring=[0, 0],
                    per_pixel=[0, 0], pixel_loop_model=[0.0, 0.0])
            for k in ("sweep full", "sweep coarse")}
-    tot.update({k: dict(calls=0, bound_ms=0.0) for k in ("warp", "rows", "cols")})
+    tot.update({k: dict(calls=0, bound_ms=0.0) for k in ("warp", "rows", "cols", "sweep off")})
     for i, kind, x in calls:
+        if kind == "sweep off":
+            tot[kind]["calls"] += 1   # a coarse pass gated off on the device: no work
+            continue
         if kind == "sweep":
             t = tot["sweep full" if x[10] else "sweep coarse"]
             lu = lane_use(torch, x)
@@ -838,32 +890,34 @@ def run_work(torch, calls):
             f"{share(t['scoring']):.3f}, per-pixel loops {share(t['per_pixel']):.3f}; "
             f"one-thread-per-pixel loop by the schedule model (not measured) "
             f"{share(t['pixel_loop_model']):.3f}")
+    log(f"  sweep coarse gated off on the device: {tot['sweep off']['calls']} calls")
     for key in ("warp", "rows", "cols"):
         log(f"  {'warp' if key == 'warp' else 'resample_' + key}: {tot[key]['calls']} calls, "
             f"summed bound {tot[key]['bound_ms']:.4f} ms")
     return tot
 
 
-def profile_run(torch, P, frames, cam, label, wall_ms, account=False):
-    """Replay the 640x480 run under torch.profiler (CPU and CUDA activity):
-    each kernel's summed device ms and launches, and the device's busy share
-    (the union of all device activity, over the span from the first to the
-    last device event, and over ``wall_ms``, an unprofiled run's wall time).
-    With ``account`` the replay also keeps every sweep call's inputs and each
-    warp pass's bytes, and ``run_work`` adds them up after the profiler has
-    stopped. Returns (profile, engine)."""
+def profile_run(torch, P, kernels, frames, cam, label, account=False):
+    """The 640x480 run as ``drive`` runs its updates, each a graph replay
+    (no hook), under torch.profiler (CPU and CUDA activity): each kernel's
+    summed device ms and launches, and the device's busy share (the union
+    of all device activity, over the span from the first to the last device
+    event, and over the wall time of the same run unprofiled, made just
+    before). The launch counts are zeroed just before the profiled run and
+    read just after, and each kernel's launches in the trace must equal
+    them: the trace shows that the replays launched what the counts say.
+    With ``account`` an eager pass (not profiled: ``replay``'s hook makes
+    every update ``eager_update``, whose wrappers see the inputs) keeps
+    every sweep call's inputs and each warp pass's bytes, and ``run_work``
+    adds them up. Returns (profile, engine)."""
     from torch.profiler import ProfilerActivity, profile
 
-    calls = []
-
-    def keep(i, kind, args):
-        calls.append((i, kind, args if kind == "sweep" else warp_work(args) if kind == "warp"
-                      else resample_bytes(kind, *args)))
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng, _, _ = replay(torch, P, frames, cam, hook=keep if account else None)
     from rpg_open_remode_tpu_torch.utils.profiling import device_busy_ms
 
+    _, _, wall_ms = replay(torch, P, frames, cam)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng, _, _ = replay(torch, P, frames, cam, kernels=kernels)
+    launches = dict(kernels.LAUNCHES)
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = device_busy_ms(prof)
@@ -871,18 +925,31 @@ def profile_run(torch, P, frames, cam, label, wall_ms, account=False):
         raise AssertionError("the profiler recorded no device activity")
     span = (max(e.time_range.end for e in dev_events)
             - min(e.time_range.start for e in dev_events)) / 1e3
-    out = dict(busy_ms=busy, span_ms=span, wall_ms=wall_ms,
-               busy_share_span=busy / span, busy_share_wall=busy / wall_ms, kernels={})
+    out = dict(busy_ms=busy, span_ms=span, wall_ms=wall_ms, busy_share_span=busy / span,
+               busy_share_wall=busy / wall_ms, launches=launches, kernels={})
     for k, sym in KERNEL_SYMBOLS.items():
         evs = [e for e in dev_events if sym in e.name]
         out["kernels"][k] = dict(ms=sum(e.time_range.end - e.time_range.start for e in evs) / 1e3,
                                  launches=len(evs))
     log(f"  profile {label}: device busy {out['busy_ms']:.3f} ms = "
         f"{100 * out['busy_share_span']:.2f} % of the profiled span {out['span_ms']:.1f} ms, "
-        f"{100 * out['busy_share_wall']:.2f} % of an unprofiled run's wall {wall_ms:.1f} ms")
+        f"{100 * out['busy_share_wall']:.2f} % of the same run's unprofiled wall {wall_ms:.1f} ms")
     for k, r in out["kernels"].items():
-        log(f"  profile {label}: {k} {r['ms']:.4f} ms device over {r['launches']} launches")
+        log(f"  profile {label}: {k} {r['ms']:.4f} ms device over {r['launches']} launches "
+            f"(counted {launches[k]})")
+    off = {k: (r["launches"], launches[k]) for k, r in out["kernels"].items()
+           if r["launches"] != launches[k]}
+    if off:
+        raise AssertionError(f"{label}: the trace's launches differ from the counts "
+                             f"(traced, counted): {off}")
     if account:
+        calls = []
+
+        def keep(i, kind, args):
+            calls.append((i, kind, args if kind.startswith("sweep") else warp_work(args)
+                          if kind == "warp" else resample_bytes(kind, *args)))
+
+        replay(torch, P, frames, cam, hook=keep)
         out["work"] = run_work(torch, calls)
     return out, eng
 
@@ -1992,6 +2059,418 @@ def scripts_phase():
     return out
 
 
+# -- the compiled programs: CUDA graph replays against the eager step --------------
+
+
+GRAPH_TURNS = ("eager", "graph", "graph", "eager")
+GRAPH_KEEP = (10, 100, 199)          # frames of the over_table run whose states are held
+SYNC_SCHEDULE = dict(frames=80, switches=(20, 50), debug=(25, 80))
+CHUNK_K = 16
+
+
+def leaves(state):
+    """A state's tensors by name, the scene's as ``scene.<field>``."""
+    out = {f.name: getattr(state, f.name) for f in dataclasses.fields(state) if f.name != "scene"}
+    out.update({"scene." + f.name: getattr(state.scene, f.name)
+                for f in dataclasses.fields(state.scene)})
+    return out
+
+
+def state_err(got, want):
+    """The largest ``max_err`` over every leaf of two states."""
+    g, w = leaves(got), leaves(want)
+    return max(max_err(g[k], w[k]) for k in w)
+
+
+class EagerEngine:
+    """The eager functional core driven as ``Depthmap`` drives its programs:
+    ``set_reference`` (flat, or ``_set_reference_propagated`` with
+    ``propagate``), ``update_step`` with the regime read on the device (the
+    oracle's own choice), the frame prepped and undistorted eagerly."""
+
+    def __init__(self, torch, P, width, height, cam, cfg=None, grid=None):
+        from rpg_open_remode_tpu_torch.models.state import clone, empty_state
+        from rpg_open_remode_tpu_torch.utils.camera import PinholeCamera
+
+        self.torch = torch
+        self.cfg = cfg or P.RemodeConfig.for_camera(cam["fx"])
+        self.cam = PinholeCamera.create(cam["fx"], cam["fy"], cam["cx"], cam["cy"],
+                                        device="cuda")
+        self.state = clone(empty_state(height, width, self.cam))
+        self.grid = grid
+        self.has_reference = False
+
+    def image(self, img):
+        from rpg_open_remode_tpu_torch.models.depthmap import prep_image
+        from rpg_open_remode_tpu_torch.utils import warp as warp_ops
+
+        x = prep_image(self.torch.as_tensor(np.asarray(img)).to("cuda"))
+        return x if self.grid is None else warp_ops.warp_grid(x, *self.grid)
+
+    def pose(self, T):
+        return self.torch.tensor(np.asarray(T, np.float32), device="cuda")
+
+    def set_reference_image(self, img, T, lo, hi):
+        from rpg_open_remode_tpu_torch.models import depthmap
+        from rpg_open_remode_tpu_torch.models.state import SceneParams
+
+        scene = SceneParams.create(lo, hi, self.cfg, device="cuda")
+        if self.cfg.propagate_depth and self.has_reference and self.grid is None:
+            self.state = depthmap._set_reference_propagated(
+                self.state, self.image(img), self.pose(T), scene, self.cam, self.cfg)
+        else:
+            self.state = depthmap.set_reference(self.state, self.image(img), self.pose(T), scene,
+                                                self.cfg)
+        self.has_reference = True
+
+    def update(self, img, T):
+        from rpg_open_remode_tpu_torch.models.depthmap import update_step
+
+        self.state, stats = update_step(self.state, self.image(img), self.pose(T), self.cam,
+                                        self.cfg)
+        return stats
+
+    def denoised_depthmap(self, lam=0.5, iterations=200):
+        from rpg_open_remode_tpu_torch.models.depthmap import denoise_depthmap
+
+        return denoise_depthmap(self.state, self.cfg, lam=lam, iterations=iterations).cpu().numpy()
+
+
+def engine_of(torch, P, which, frames, cam, cfg=None, undistort=None):
+    h, w = frames[0].image.shape
+    if which == "eager":
+        grid = None
+        if undistort is not None:
+            from rpg_open_remode_tpu_torch.models.depthmap import undistort_map
+            from rpg_open_remode_tpu_torch.utils.camera import PinholeCamera
+
+            c = PinholeCamera.create(cam["fx"], cam["fy"], cam["cx"], cam["cy"], device="cuda")
+            grid = undistort_map(h, w, c, **undistort)
+        return EagerEngine(torch, P, w, h, cam, cfg, grid)
+    eng = P.Depthmap(w, h, cam["fx"], cam["cx"], cam["fy"], cam["cy"], cfg=cfg)
+    if undistort is not None:
+        eng.init_undistortion_map(**undistort)
+    return eng
+
+
+def timed_sequence(torch, P, kernels, which, frames, cam, cfg=None, undistort=None,
+                   poses=None, switches=(), keep=(), denoise=False, debug=None):
+    """One engine (``which``: "graph", a ``Depthmap``; "eager", the eager
+    core) over ``frames``: keyframe on frame 0, a reseed (propagated with
+    ``cfg.propagate_depth``) at each frame of ``switches``, an update on
+    every other; ``poses[i]`` overrides frame i's pose. Launch counts zeroed
+    before, read after; CUDA events and the host clock around every call;
+    the states after the frames in ``keep`` (copies); ``debug`` = (first,
+    end): frames run under ``torch.cuda.set_sync_debug_mode("error")``."""
+    from rpg_open_remode_tpu_torch.models.state import clone
+
+    poses = poses or {}
+    eng = engine_of(torch, P, which, frames, cam, cfg, undistort)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    rec = dict(frame=[], switch=[], host=[], switch_host=[], packed=[], kept={})
+    t_start = time.perf_counter()
+    for i, fr in enumerate(frames):
+        T = poses.get(i, Tcw(fr))
+        if debug is not None and i == debug[0]:
+            torch.cuda.set_sync_debug_mode("error")
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        s.record()
+        if i == 0 or i in switches:
+            eng.set_reference_image(fr.image, T, *gt_bounds(fr))
+            key = "switch"
+        else:
+            rec["packed"].append(eng.update(fr.image, T)["packed"])
+            key = "frame"
+        e.record()
+        rec[key].append((s, e))
+        rec["host" if key == "frame" else "switch_host"].append(1e3 * (time.perf_counter() - t0))
+        if debug is not None and i + 1 == debug[1]:
+            torch.cuda.set_sync_debug_mode(0)
+        if i in keep:
+            rec["kept"][i] = clone(eng.state if which == "eager" else eng.programs.state)
+    den = eng.denoised_depthmap(0.5, 200) if denoise else None
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t_start)
+    ms = np.array([s.elapsed_time(e) for s, e in rec["frame"]])
+    out = dict(eng=eng, launches=dict(kernels.LAUNCHES), wall_ms=wall, denoised=den,
+               packed=rec["packed"], kept=rec["kept"],
+               state=eng.state if which == "eager" else eng.programs.state,
+               frame_ms_median=float(np.median(ms)), frame_ms_p90=float(np.percentile(ms, 90)),
+               host_ms_median=float(np.median(rec["host"])),
+               host_ms_p90=float(np.percentile(rec["host"], 90)),
+               switch_ms=[s.elapsed_time(e) for s, e in rec["switch"][1:]],
+               switch_host_ms=rec["switch_host"][1:])
+    return out
+
+
+def compare_runs(label, graph, eager, frames_kept=()):
+    """Graph against eager, bit for bit: the final states, the kept states,
+    every frame's packed stats, the denoised maps; and the launch counts.
+    Raises on any difference."""
+    errs = dict(state=state_err(graph["state"], eager["state"]),
+                stats=max((max_err(g, w) for g, w in zip(graph["packed"], eager["packed"])),
+                          default=0.0))
+    for i in frames_kept:
+        errs[f"frame {i}"] = state_err(graph["kept"][i], eager["kept"][i])
+    if graph["denoised"] is not None:
+        errs["denoised"] = float(np.nanmax(np.abs(graph["denoised"] - eager["denoised"])))
+    same_launches = graph["launches"] == eager["launches"]
+    log(f"  {label}: graph against eager, max err " + ", ".join(
+        f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; launches {graph['launches']} (eager {'equal' if same_launches else eager['launches']})")
+    if max(errs.values()) != 0.0 or len(graph["packed"]) != len(eager["packed"]):
+        raise AssertionError(f"{label}: the graph replays differ from the eager step")
+    if not same_launches:
+        raise AssertionError(f"{label}: launch counts differ, graph {graph['launches']}, "
+                             f"eager {eager['launches']}")
+    return dict(errs, launches=graph["launches"])
+
+
+def steady_busy(torch, eng, frames):
+    """The device's busy share of a replayed run with every program already
+    captured: ``eng`` (a ``Depthmap`` that ran ``frames``) keyed on frame 0
+    again and updated on the rest, once by the wall clock and once under
+    the profiler (``utils/profiling.profiled``, marker-checked)."""
+    from rpg_open_remode_tpu_torch.utils.profiling import device_busy_ms, profiled
+
+    def run():
+        eng.set_reference_image(frames[0].image, Tcw(frames[0]), *gt_bounds(frames[0]))
+        for fr in frames[1:]:
+            eng.update(fr.image, Tcw(fr))
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    prof, marker = profiled(run)
+    busy = device_busy_ms(prof, before=marker)
+    return dict(wall_ms=wall, busy_ms=busy, busy_share_wall=busy / wall,
+                frame_ms=wall / (len(frames) - 1))
+
+
+def in_turns(torch, P, kernels, label, frames, cam, keep=(), denoise=False, busy=False):
+    """``timed_sequence`` with each engine in turns (``GRAPH_TURNS``): the
+    per-frame median and p90 (CUDA events and host clock) of each turn, and
+    the first graph turn held against the first eager turn; with ``busy``
+    the busy share of a steady replayed run (``steady_busy``)."""
+    runs = {"eager": [], "graph": []}
+    for which in GRAPH_TURNS:
+        runs[which].append(timed_sequence(torch, P, kernels, which, frames, cam, keep=keep,
+                                          denoise=denoise))
+    cmp = compare_runs(label, runs["graph"][0], runs["eager"][0], keep)
+    out = dict(compare=cmp, frames=len(frames))
+    for which, rs in runs.items():
+        for f in ("frame_ms_median", "frame_ms_p90", "host_ms_median", "host_ms_p90", "wall_ms"):
+            out[f"{which}_{f}"] = [r[f] for r in rs]
+    caps = runs["graph"][-1]["eng"].programs.captures()
+    out["captures"] = [dict(label=p.label, capture_s=p.capture_s, captured_bytes=p.captured_bytes)
+                       for p in caps]
+    out["pool_bytes"] = runs["graph"][-1]["eng"].programs.pool_bytes()
+    log(f"  {label} in turns {GRAPH_TURNS}: per frame median, CUDA events: graph "
+        f"{fmt(out['graph_frame_ms_median'])} ms (p90 {fmt(out['graph_frame_ms_p90'])}), eager "
+        f"{fmt(out['eager_frame_ms_median'])} ms (p90 {fmt(out['eager_frame_ms_p90'])}); host "
+        f"clock a call: graph {fmt(out['graph_host_ms_median'])} ms (p90 "
+        f"{fmt(out['graph_host_ms_p90'])}), eager {fmt(out['eager_host_ms_median'])} ms (p90 "
+        f"{fmt(out['eager_host_ms_p90'])}); wall graph {fmt(out['graph_wall_ms'])} ms, eager "
+        f"{fmt(out['eager_wall_ms'])} ms")
+    if busy:
+        out["steady"] = st = steady_busy(torch, runs["graph"][-1]["eng"], frames)
+        log(f"  {label}, replayed with every program captured: wall {st['wall_ms']:.1f} ms "
+            f"({st['frame_ms']:.3f} ms a frame), device busy {st['busy_ms']:.1f} ms = "
+            f"{100 * st['busy_share_wall']:.2f} % of the wall (profiler)")
+    log(f"  {label}: graph pool {out['pool_bytes'] / 2 ** 20:.1f} MiB; captures "
+        + ", ".join(f"{c['label']} {1e3 * c['capture_s']:.1f} ms (+{c['captured_bytes'] / 2 ** 20:.1f}"
+                    " MiB reserved)" for c in out["captures"]))
+    return out
+
+
+def fmt(xs):
+    return "[" + ", ".join(f"{x:.3f}" for x in xs) + "]"
+
+
+def regime_poses(frames):
+    """Poses that take the matcher through all three regimes on frames
+    1-12: the keyframe's own pose (zero baseline, pure rotation) on 1-4, a
+    move along the optical axis (axial, plane sweep) on 5-8, the sequence's
+    own lateral poses on 9-12."""
+    T0 = Tcw(frames[0]).astype(np.float64)
+    poses = {}
+    for i in range(1, 5):
+        poses[i] = T0.astype(np.float32)
+    for i in range(5, 9):
+        T = T0.copy()
+        T[2, 3] -= 0.02 * (i - 4)
+        poses[i] = T.astype(np.float32)
+    return poses
+
+
+def regimes_run(torch, P, kernels, frames):
+    """Graph against eager over a sequence that reaches every regime; the
+    host's regime against the device's on every frame; the programs of each
+    regime captured."""
+    from rpg_open_remode_tpu_torch.ops import rect_match
+    from rpg_open_remode_tpu_torch.utils import se3
+
+    poses = regime_poses(frames)
+    seq = frames[:13]
+    g = timed_sequence(torch, P, kernels, "graph", seq, CAM_640, poses=poses)
+    e = timed_sequence(torch, P, kernels, "eager", seq, CAM_640, poses=poses)
+    cmp = compare_runs("three regimes (13 frames)", g, e)
+    prog, eng = g["eng"].programs, g["eng"]
+    host, dev = [], []
+    for i in range(1, 13):
+        T = poses.get(i, Tcw(seq[i]))
+        host.append(prog.regime(T))
+        Tcr = se3.compose(torch.tensor(T, device="cuda"), prog.state.T_world_ref)
+        dev.append(int(rect_match.regime_device(prog.state, Tcr, eng.cam, eng.cfg, *seq[0].image.shape)))
+    regimes = sorted({k[-1] for k in prog.cache if k[0] == "update"})
+    log(f"  regimes by frame, host {host}, device {dev}; update programs for regimes {regimes}")
+    if host != dev or regimes != [0, 1, 2]:
+        raise AssertionError("the host's regime differs from the device's, or a regime went "
+                             "unvisited")
+    return dict(cmp, host=host, device=dev)
+
+
+def undistortion_graphs(torch, P, kernels, frames):
+    g = timed_sequence(torch, P, kernels, "graph", frames[:UNDISTORT_FRAMES], CAM_640,
+                       undistort=UNDISTORT, denoise=True)
+    e = timed_sequence(torch, P, kernels, "eager", frames[:UNDISTORT_FRAMES], CAM_640,
+                       undistort=UNDISTORT, denoise=True)
+    return compare_runs(f"undistortion ({UNDISTORT_FRAMES} frames)", g, e)
+
+
+def propagated_graphs(torch, P, kernels, frames):
+    """Two propagated switches, graph against eager; the second switch is a
+    replay, and it and the frames around it run under
+    ``set_sync_debug_mode("error")``: any host read fails the run. Then a
+    replayed switch under the profiler: its device operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = dataclasses.replace(P.RemodeConfig.for_camera(CAM_640["fx"]), propagate_depth=True)
+    sched = SYNC_SCHEDULE
+    seq = frames[:sched["frames"]]
+    keep = tuple(k + 1 for k in sched["switches"])
+    g = timed_sequence(torch, P, kernels, "graph", seq, CAM_640, cfg=cfg,
+                       switches=sched["switches"], keep=keep, debug=sched["debug"])
+    e = timed_sequence(torch, P, kernels, "eager", seq, CAM_640, cfg=cfg,
+                       switches=sched["switches"], keep=keep)
+    cmp = compare_runs(f"propagated switches at {sched['switches']} ({len(seq)} frames)", g, e,
+                       keep)
+    n_debug = sum(1 for i in range(*sched["debug"]) if i not in sched["switches"])
+    eng = g["eng"]
+    fr = seq[sched["switches"][-1]]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.set_reference_image(fr.image, Tcw(fr), *gt_bounds(fr))
+        torch.cuda.synchronize()
+    ops = sum(1 for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA)
+    prog = [p for k, p in eng.programs.cache.items() if k[0] == "set_reference_propagated"][0]
+    out = dict(cmp, switch_ms=g["switch_ms"], switch_host_ms=g["switch_host_ms"],
+               eager_switch_ms=e["switch_ms"], device_ops_per_switch=ops,
+               capture_s=prog.capture_s, captured_bytes=prog.captured_bytes,
+               pool_bytes=eng.programs.pool_bytes(), debug_frames=n_debug)
+    log(f"  {n_debug} replayed frames and the replayed switch at frame {sched['switches'][-1]} "
+        f"under set_sync_debug_mode('error'): no host synchronization")
+    log(f"  propagated switch (replayed): {fmt(out['switch_ms'])} ms (CUDA events), host "
+        f"{fmt(out['switch_host_ms'])} ms; eager {fmt(out['eager_switch_ms'])} ms; "
+        f"{ops} device operations (profiler); capture {1e3 * prog.capture_s:.1f} ms; graph pool "
+        f"{out['pool_bytes'] / 2 ** 20:.1f} MiB")
+    return out
+
+
+def chunk_graphs(torch, P, kernels, frames):
+    """``Depthmap.update_chunk`` with K = CHUNK_K (K replays a call, no host
+    read between them) over three chunks against the eager chain; the
+    third chunk timed (CUDA events a call, over K)."""
+    seq = frames[:1 + 3 * CHUNK_K]
+    h, w = seq[0].image.shape
+    eng = P.Depthmap(w, h, CAM_640["fx"], CAM_640["cx"], CAM_640["fy"], CAM_640["cy"])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    eng.set_reference_image(seq[0].image, Tcw(seq[0]), *gt_bounds(seq[0]))
+    packed, events, host = [], [], []
+    for c in range(3):
+        part = seq[1 + c * CHUNK_K: 1 + (c + 1) * CHUNK_K]
+        imgs = np.stack([fr.image for fr in part])
+        Ts = np.stack([Tcw(fr) for fr in part])
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        s.record()
+        packed.append(eng.update_chunk(imgs, Ts))
+        e.record()
+        host.append(1e3 * (time.perf_counter() - t0))
+        events.append((s, e))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    ref = timed_sequence(torch, P, kernels, "eager", seq, CAM_640)
+    errs = dict(state=state_err(eng.programs.state, ref["state"]),
+                stats=max_err(torch.cat(packed), torch.stack(ref["packed"])))
+    ms = [s.elapsed_time(e) / CHUNK_K for s, e in events]
+    log(f"  update_chunk K={CHUNK_K}, 3 chunks: max err state {errs['state']:.3g}, stats "
+        f"{errs['stats']:.3g}; launches {launches} (eager {'equal' if launches == ref['launches'] else ref['launches']}); "
+        f"per frame {fmt(ms)} ms (CUDA events over a chunk / K), host {fmt([x / CHUNK_K for x in host])} ms")
+    if max(errs.values()) != 0.0 or launches != ref["launches"]:
+        raise AssertionError("update_chunk differs from the eager chain")
+    return dict(errs, frame_ms=ms, host_ms=[x / CHUNK_K for x in host], launches=launches)
+
+
+def ring_graphs(torch, P, frames):
+    """A ring of RING_EXACT_B slots (each slot's update and reseed a replay)
+    against as many eager chains fed alike over RING_EXACT_FRAMES frames
+    (slot i reseeded flat on frame 10 i), bit for bit; the slots' graph
+    pools."""
+    h, w = frames[0].image.shape
+    ring = P.BatchedDepthmap(RING_EXACT_B, w, h, CAM_640["fx"], CAM_640["cx"], CAM_640["fy"],
+                             CAM_640["cy"])
+    chains = [engine_of(torch, P, "eager", frames, CAM_640) for _ in range(RING_EXACT_B)]
+    stats_err = 0.0
+    for j, fr in enumerate(frames[:RING_EXACT_FRAMES]):
+        T = Tcw(fr)
+        if j:
+            got = ring.update(fr.image, T)["packed"]
+            for i, ch in enumerate(chains):
+                stats_err = max(stats_err, max_err(got[i], ch.update(fr.image, T)["packed"]))
+        for i, ch in enumerate(chains):
+            if j == 10 * i or j == 0:
+                ring.seed_keyframe(i, fr.image, T, *gt_bounds(fr))
+                ch.set_reference_image(fr.image, T, *gt_bounds(fr))
+    err = max(state_err(p.state, ch.state) for p, ch in zip(ring.programs, chains))
+    pools = [p.pool_bytes() for p in ring.programs]
+    log(f"  ring of {RING_EXACT_B} (graphs) against {RING_EXACT_B} eager chains over "
+        f"{RING_EXACT_FRAMES} frames: max err state {err:.3g}, stats {stats_err:.3g}; graph "
+        f"pools {[round(b / 2 ** 20, 1) for b in pools]} MiB, "
+        f"{sum(pools) / 2 ** 20:.1f} MiB in all")
+    if err != 0.0 or stats_err != 0.0:
+        raise AssertionError("a ring slot's replays differ from its eager chain")
+    return dict(state=err, stats=stats_err, pool_bytes=pools)
+
+
+def graphs_phase(torch, P, kernels, frames640, frames720, frames1080):
+    """The compiled programs on the card: every replay against the eager
+    ``update_step`` it captured, bit for bit, and the timings graph against
+    eager in turns."""
+    out = {}
+    out["640x480"] = in_turns(torch, P, kernels, f"640x480 over_table ({len(frames640)} frames, "
+                              "denoise)", frames640, CAM_640, keep=GRAPH_KEEP, denoise=True,
+                              busy=True)
+    out["regimes"] = regimes_run(torch, P, kernels, frames640)
+    out["undistortion"] = undistortion_graphs(torch, P, kernels, frames640)
+    out["propagated"] = propagated_graphs(torch, P, kernels, frames640)
+    out["chunk"] = chunk_graphs(torch, P, kernels, frames640)
+    out["ring"] = ring_graphs(torch, P, frames640)
+    from rpg_open_remode_tpu_torch.eval import CAM_1080
+
+    out["1280x720"] = in_turns(torch, P, kernels, f"1280x720 ({len(frames720)} frames)",
+                               frames720, CAM_720, busy=True)
+    out["1920x1080"] = in_turns(torch, P, kernels, f"1920x1080 ({len(frames1080)} frames)",
+                                frames1080, CAM_1080, busy=True)
+    return out
+
+
 # -- kernel timings ------------------------------------------------------------
 
 
@@ -2205,8 +2684,9 @@ def undistortion_run(torch, P, kernels, frames):
     UNDISTORT_FRAMES frames and a denoise, the launch counts zeroed just
     before the keyframe and read just after the denoise: the 1-D resamplers
     once each per input image (``utils/warp.warp_grid``), and every kernel
-    of the engine's path at least once. The last image's two passes are
-    held bit for bit against their plain versions and timed
+    of the engine's path at least once. The last image's two passes (from
+    ``input_image``, the eager form of what the programs replay) are held
+    bit for bit against their plain versions and timed
     (``resample_timings``). Returns the counts, errors and timings."""
     f0 = frames[0]
     d0 = f0.depth[np.isfinite(f0.depth)]
@@ -2221,13 +2701,14 @@ def undistortion_run(torch, P, kernels, frames):
 
     torch.cuda.synchronize()
     kernels.reset_launches()
-    with intercept(keep):
-        eng.set_reference_image(f0.image, Tcw(f0), d0.min(), d0.max())
-        for fr in frames[1:UNDISTORT_FRAMES]:
-            eng.update(fr.image, Tcw(fr))
-        den = eng.denoised_depthmap(0.5, 200)
+    eng.set_reference_image(f0.image, Tcw(f0), d0.min(), d0.max())
+    for fr in frames[1:UNDISTORT_FRAMES]:
+        eng.update(fr.image, Tcw(fr))
+    den = eng.denoised_depthmap(0.5, 200)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
+    with intercept(keep):
+        eng.input_image(frames[UNDISTORT_FRAMES - 1].image)
     problems = [f"resample_{k}: {launches['resample_' + k]} launches, want {UNDISTORT_FRAMES}"
                 for k in ("rows", "cols") if launches["resample_" + k] != UNDISTORT_FRAMES]
     problems += [f"{k} not launched" for k in PATH_KERNELS if launches[k] <= 0]
@@ -2353,11 +2834,10 @@ def baseline_compare(torch, P, kernels, baseline_dir, calls, frames, run640, run
             log(f"  {name}: old {out[name]['old']:.4f} ms, new {out[name]['new']:.4f} ms "
                 f"(each the mean of two turns: {t['old']} / {t['new']})")
         frame_ms = {"old": [], "new": []}
-        wall = {"old": [], "new": []}
         for which in ("old", "new", "new", "old"):
             events = []
             with with_library(kernels, libs[which]):
-                wall[which].append(replay(torch, P, frames, CAM_640, events=events)[2])
+                replay(torch, P, frames, CAM_640, events=events)
             frame_ms[which].append(float(np.median([s.elapsed_time(e) for s, e in events[:-1]])))
         log(f"  640x480 per-frame median, in turns: old {frame_ms['old']} ms, "
             f"new {frame_ms['new']} ms")
@@ -2365,8 +2845,8 @@ def baseline_compare(torch, P, kernels, baseline_dir, calls, frames, run640, run
         depth = {}
         for which, lib in libs.items():
             with with_library(kernels, lib):
-                profiles[which], eng = profile_run(torch, P, frames, CAM_640, f"{which} kernels",
-                                                   float(np.mean(wall[which])))
+                profiles[which], eng = profile_run(torch, P, kernels, frames, CAM_640,
+                                                   f"{which} kernels")
             depth[which] = eng.depthmap()
         same = bool(np.array_equal(depth["old"], depth["new"], equal_nan=True))
         log(f"  old and new kernels give the same depth map bit for bit: {same}")
@@ -2435,14 +2915,18 @@ def main() -> int:
     for k, e in real_input_parity(torch, P, run640, calls).items():
         errs[k] = max(errs[k], e)
 
-    phase("profiler over a replay of the 640x480 run; work, bounds and lane use of its calls")
-    prof, _ = profile_run(torch, P, frames640, CAM_640, "640x480 run", run640["wall_ms"],
-                          account=True)
+    phase("profiler over the replayed 640x480 run (the trace's launches held to the counts); "
+          "work, bounds and lane use of its calls from an eager pass")
+    prof, _ = profile_run(torch, P, kernels, frames640, CAM_640, "640x480 run", account=True)
     work = prof.pop("work")
+    if {k: prof["launches"][k] for k in PATH_KERNELS} != {
+            k: run640["launches"][k] for k in PATH_KERNELS}:
+        raise AssertionError(f"the profiled replay's launches {prof['launches']} differ from "
+                             f"the main path's {run640['launches']}")
 
     phase("main path 1280x720 (80 frames, focal-scaled config, denoise)")
-    run720 = drive(torch, P, kernels, make_frames(1280, 720, CAM_720, 80), CAM_720,
-                   keep_frame=KEEP_FRAME, first=KEEP_FRAME)
+    frames720 = make_frames(1280, 720, CAM_720, 80)
+    run720 = drive(torch, P, kernels, frames720, CAM_720, keep_frame=KEEP_FRAME, first=KEEP_FRAME)
     report_run("1280x720", run720)
     log(f"  beside the JAX hd_1280x720 row {HD_ROW}")
     warps720 = warp_instances(frame_warps(run720), "1280x720")
@@ -2466,6 +2950,13 @@ def main() -> int:
     undist = undistortion_run(torch, P, kernels, frames640)
     for k, e in undist["errs"].items():
         errs[k] = max(errs[k], e)
+
+    phase("the compiled programs: every step, chunk and reseed a CUDA graph replay, held bit "
+          "for bit against the eager update_step; graph against eager in turns")
+    t_phase = time.perf_counter()
+    graphs = graphs_phase(torch, P, kernels, frames640, frames720, fhd["run"].pop("rendered"))
+    del frames720
+    log(f"  phase took {time.perf_counter() - t_phase:.1f} s")
 
     phase("keyframe lifecycle accuracy (eval.py's keyframe segments, 640x480, hardened scene)")
     fast = make_frames(640, 480, CAM_640, 190, step=peval.FAST_STEP)
@@ -2504,8 +2995,8 @@ def main() -> int:
           "a profiled replay with the unfused route")
     turns = route_turns(torch, P, frames640)
     with unfused_route():
-        prof_unfused, _ = profile_run(torch, P, frames640, CAM_640, "640x480 run, unfused route",
-                                      float(np.mean(turns["wall_unfused"])))
+        prof_unfused, _ = profile_run(torch, P, kernels, frames640, CAM_640,
+                                      "640x480 run, unfused route")
 
     base = None
     if opts.baseline:
@@ -2608,7 +3099,7 @@ def main() -> int:
                 profile_lifecycle=prop_run, cli=cli_out, ring=ring, mesh=mesh,
                 launch_figures=launch, fhd=dict(run={k: fhd["run"][k] for k in keep},
                                                 peaks=fhd["peaks"], timings=fhd["timings"]),
-                scripts=scripts, baseline=base)), f, indent=1)
+                scripts=scripts, baseline=base, graphs=graphs)), f, indent=1)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,11 +20,11 @@ then
   node_lifecycle    ``DepthmapNode`` over the same frames, 2 passes, a fresh
                     node each
   offline_chunked   the frames staged on the card, K = 16 a call of
-                    ``update_chunk``. The port's ``update_chunk`` is a
-                    Python loop over ``update_step`` (each frame reads two
-                    scalars on the host, so it is no single dispatch), so
-                    this times the same loop as offline_staged
-  offline_staged    the frames staged on the card, pre-sliced, one update each
+                    ``update_chunk``: K replays of the captured frame step
+                    (``models/programs.py``) with no host read between them
+                    (the poses read back once a call)
+  offline_staged    the frames staged on the card, pre-sliced, one update
+                    (one replay) each
   fast_motion, live_752, hd_720p, fhd_1080p
                     staged replays at the paper's other operating points and
                     beyond (``POINTS``), each accounted on its young and its
@@ -106,7 +106,7 @@ def _wait(eng) -> None:
     """Wait for the engine's device work through a scalar fetch."""
     from rpg_open_remode_tpu_torch.utils.profiling import force
 
-    force(eng.state.mu)
+    force(eng.programs.state.mu)
 
 
 class Record:
@@ -230,7 +230,8 @@ def denoise_seconds(eng, n, repeats=2) -> float:
 
     eng.denoised_depthmap(0.5, 200)
     return max(Timer.amortized(
-        lambda j: denoise_depthmap(eng.state, eng.cfg, lam=0.5 + 1e-4 * j, iterations=200),
+        lambda j: denoise_depthmap(eng.programs.state, eng.cfg, lam=0.5 + 1e-4 * j,
+                                   iterations=200),
         n=n, repeats=repeats), 1e-9)
 
 

@@ -137,7 +137,7 @@ def run(device="cuda", width=640, height=480, cam=CAM_640, n_frames=40, end=36,
     eng.set_reference_image(imgs[0], poses[0], *bounds(frames[0]))
     for i in range(1, 6):
         eng.update(imgs[i], poses[i])
-    force(eng.state.mu)
+    force(eng.programs.state.mu)
     snap_b1 = eng.state
 
     def reset_b1():
@@ -146,7 +146,7 @@ def run(device="cuda", width=640, height=480, cam=CAM_640, n_frames=40, end=36,
     def run_b1():
         for i in range(6, end):
             eng.update(imgs[i], poses[i])
-        force(eng.state.mu)
+        force(eng.programs.state.mu)
 
     per = _best_of(n_pass, run_b1, end - 6, reset_b1)
     out["B1_updates_per_s"] = round(1.0 / per, 1)
@@ -159,10 +159,10 @@ def run(device="cuda", width=640, height=480, cam=CAM_640, n_frames=40, end=36,
             beng.seed_keyframe(slot, imgs[2 * slot], poses[2 * slot], *bounds(frames[2 * slot]))
         for i in range(8, 12):
             beng.update(imgs[i], poses[i])
-        force(beng.slots[-1].mu)
-        # the slots are frozen states: restoring each slot is all a pass
+        force(beng.programs[-1].state.mu)
+        # copies of the slots' states: restoring each slot is all a pass
         # needs (update() reads nothing else)
-        snap_bb = list(beng.slots)
+        snap_bb = beng.slots
 
         def reset_bb():
             for slot, st in enumerate(snap_bb):
@@ -171,7 +171,7 @@ def run(device="cuda", width=640, height=480, cam=CAM_640, n_frames=40, end=36,
         def run_bb():
             for i in range(12, end):
                 beng.update(imgs[i], poses[i])
-            force(beng.slots[-1].mu)
+            force(beng.programs[-1].state.mu)
 
         per = _best_of(n_pass, run_bb, end - 12, reset_bb)
         out[f"B{B}_updates_per_s"] = round(B / per, 1)

@@ -399,7 +399,7 @@ def cmd_bench(args):
     if seq:   # frame 1 warms up untimed (the kernels build at first use)
         _, img, T_cw, _ = seq[0]
         engine.update(img, T_cw)
-        force(engine.state.mu)
+        force(engine.programs.state.mu)
     BLOCK = 10
     times = []
     i = 1
@@ -408,7 +408,7 @@ def cmd_bench(args):
         t0 = time.perf_counter()
         for _, img, T_cw, _ in seq[i:j]:
             engine.update(img, T_cw)
-        force(engine.state.mu)
+        force(engine.programs.state.mu)
         times.append((time.perf_counter() - t0) / (j - i))
         i = j
     if not times:

@@ -51,6 +51,13 @@
 // parabolic refinement only when both neighbours are > -5e29 and
 // |den| > 1e-12, clipped to +-0.5; found = best >= threshold && best >= 0.
 //
+// The gate: the coarse pass is launched on every rectified frame with a
+// device pointer to the 0-d bool that decides whether it is wanted (the JAX
+// package's lax.cond, ops/rect_match.prepare_sweep), so no host reads it.
+// When it is off, every pixel's interval is empty: each block writes the
+// not-found result (disp -10, ncc -1, found 0) and leaves without staging
+// anything. A null gate is on.
+//
 // Built with -fmad=false (kernels.py), and each patch sum adds as the plain
 // version's separable box sums do (every row left to right, then the rows
 // top to bottom), so the kernel equals the plain version bit for bit: the
@@ -139,6 +146,7 @@ __global__ void __launch_bounds__(kThreads)
                  float* __restrict__ disp, float* __restrict__ ncc_out,
                  unsigned char* __restrict__ found, int h, int w, int pad, int num_planes,
                  float threshold, int refine,
+                 const unsigned char* __restrict__ gate,    // 0-d bool or null
                  unsigned long long* __restrict__ lanes) {  // [4], counting build
 
   constexpr int kS = 2 * HP + 1;
@@ -162,9 +170,11 @@ __global__ void __launch_bounds__(kThreads)
   unsigned char* owner = reinterpret_cast<unsigned char*>(misc + kTh + 2);  // [kChunk]
   float* win = reinterpret_cast<float*>(owner + kChunk);  // [kRh, 32 + K - 1 + 2 HP]
 
-  // 1. the interval of planes this pixel's masks admit
+  // 1. the interval of planes this pixel's masks admit; a gate that is off
+  // empties every interval, so the block writes the not-found result and
+  // leaves before it loads anything else
   int k0 = 0, k1 = -1;
-  if (in) {
+  if (in && (gate == nullptr || *gate != 0)) {
     // clamped in float first: empty bands carry +inf / -inf
     const float lo = dlo[idx] - 0.5f, hi = dhi[idx] + 0.5f;
     const float klo = fmaxf(ceilf(lo), 0.0f);
@@ -317,15 +327,26 @@ __global__ void __launch_bounds__(kThreads)
 // The dynamic shared memory of one block (the layout at the top of
 // sweep_kernel; the curr window as wide as num_planes can make it), opted
 // in past the default 48 KB (patch 15 with 383 planes needs 59,112 B).
+// The opt-in is made once per device and size, at the first launch that
+// needs it: a launch captured into a CUDA graph after an eager one of the
+// same shapes sets no attribute.
 template <int HP, bool kCount>
 cudaError_t block_smem(int num_planes, size_t* bytes) {
   constexpr int kRw = kTw + 2 * HP, kRh = kTh + 2 * HP;
+  constexpr int kDevices = 64;
+  static size_t opted[kDevices] = {};  // bytes opted in so far, per device
   const size_t win = (size_t)kRh * (kTw + num_planes - 1 + 2 * HP);
   *bytes = sizeof(float) * (2 * kRh * kRw + 2 * kThreads + kChunk) +
            sizeof(int) * (kThreads + kTh + 2) + kChunk + sizeof(float) * win;
   if (*bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(sweep_kernel<HP, kCount>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kDevices && opted[dev] >= *bytes) return cudaSuccess;
+  e = cudaFuncSetAttribute(sweep_kernel<HP, kCount>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
+  if (e == cudaSuccess && dev < kDevices) opted[dev] = *bytes;
+  return e;
 }
 
 template <int HP>
@@ -342,14 +363,15 @@ template <int HP, bool kCount>
 int launch(const float* curr, const float* xlim, const float* ref, const float* valid,
            const float* dlo, const float* dhi, float* disp, float* ncc,
            unsigned char* found, int h, int w, int pad, int num_planes, float threshold,
-           int refine, unsigned long long* lanes, cudaStream_t stream) {
+           int refine, const unsigned char* gate, unsigned long long* lanes,
+           cudaStream_t stream) {
   size_t bytes = 0;
   const cudaError_t e = block_smem<HP, kCount>(num_planes, &bytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((w + kTw - 1) / kTw, (h + kTh - 1) / kTh);
   sweep_kernel<HP, kCount><<<grid, kThreads, bytes, stream>>>(
       curr, xlim, ref, valid, dlo, dhi, disp, ncc, found, h, w, pad, num_planes, threshold,
-      refine, lanes);
+      refine, gate, lanes);
   return (int)cudaGetLastError();
 }
 
@@ -375,11 +397,12 @@ template <bool kCount>
 int dispatch(const float* curr, const float* xlim, const float* ref, const float* valid,
              const float* dlo, const float* dhi, float* disp, float* ncc,
              unsigned char* found, int h, int w, int pad, int num_planes, int patch_side,
-             float threshold, int refine, unsigned long long* lanes, cudaStream_t s) {
+             float threshold, int refine, const unsigned char* gate,
+             unsigned long long* lanes, cudaStream_t s) {
   return with_half_patch(patch_side, [&](auto hp) {
     return launch<decltype(hp)::value, kCount>(curr, xlim, ref, valid, dlo, dhi, disp, ncc,
                                                found, h, w, pad, num_planes, threshold,
-                                               refine, lanes, s);
+                                               refine, gate, lanes, s);
   });
 }
 
@@ -389,9 +412,10 @@ extern "C" int remode_sweep(const float* curr, const float* xlim, const float* r
                             const float* valid, const float* dlo, const float* dhi,
                             float* disp, float* ncc, unsigned char* found, int h,
                             int w, int pad, int num_planes, int patch_side,
-                            float threshold, int refine, void* stream) {
+                            float threshold, int refine, const unsigned char* gate,
+                            void* stream) {
   return dispatch<false>(curr, xlim, ref, valid, dlo, dhi, disp, ncc, found, h, w, pad,
-                         num_planes, patch_side, threshold, refine, nullptr,
+                         num_planes, patch_side, threshold, refine, gate, nullptr,
                          (cudaStream_t)stream);
 }
 
@@ -401,10 +425,10 @@ extern "C" int remode_sweep_lanes(const float* curr, const float* xlim, const fl
                                   const float* valid, const float* dlo, const float* dhi,
                                   float* disp, float* ncc, unsigned char* found, int h,
                                   int w, int pad, int num_planes, int patch_side,
-                                  float threshold, int refine, unsigned long long* lanes,
-                                  void* stream) {
+                                  float threshold, int refine, const unsigned char* gate,
+                                  unsigned long long* lanes, void* stream) {
   return dispatch<true>(curr, xlim, ref, valid, dlo, dhi, disp, ncc, found, h, w, pad,
-                        num_planes, patch_side, threshold, refine, lanes,
+                        num_planes, patch_side, threshold, refine, gate, lanes,
                         (cudaStream_t)stream);
 }
 

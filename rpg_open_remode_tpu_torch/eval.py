@@ -319,7 +319,7 @@ def eval_real_dataset(
             for k in range(i, j):
                 eng.update(images[k], entries[k].T_curr_world)
             if not clock.cuda:
-                force(eng.state.mu[0, 0])
+                force(eng.programs.state.mu[0, 0])
 
         clock(block)
         sizes.append(j - i)

@@ -137,9 +137,14 @@ class GlobalMap:
 def convergence_overlay(state: SeedState) -> np.ndarray:
     """RGB uint8 [H, W, 3]: the reference image tinted blue where CONVERGED
     and red where DIVERGED (publisher.cpp:119-136)."""
-    gray = np.clip(state.ref_img.cpu().numpy() * 255.0, 0, 255).astype(np.uint8)
+    return tint_convergence(state.ref_img, state.conv)
+
+
+def tint_convergence(ref_img: torch.Tensor, conv: torch.Tensor) -> np.ndarray:
+    """``convergence_overlay`` of a state's ``ref_img`` and ``conv``."""
+    gray = np.clip(ref_img.cpu().numpy() * 255.0, 0, 255).astype(np.uint8)
     rgb = np.stack([gray, gray, gray], axis=-1)
-    conv = state.conv.cpu().numpy()
+    conv = conv.cpu().numpy()
     rgb[conv == int(ConvergenceState.CONVERGED)] = [0, 0, 255]
     rgb[conv == int(ConvergenceState.DIVERGED)] = [255, 0, 0]
     return rgb

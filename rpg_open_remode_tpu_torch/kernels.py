@@ -7,13 +7,18 @@ cached under ``build/torch_kernels/`` beside the package, named by a hash of
 the sources and flags, so an edited source is rebuilt.
 
 Each wrapper (``ops/sweep_cuda.py``, ``ops/warp_cuda.py``,
-``ops/resample_cuda.py``, ``ops/denoise_cuda.py``) adds to ``LAUNCHES[name]`` the kernel launches it
-makes, and nowhere else, so a run can show that the main path went through
-the kernels.
+``ops/resample_cuda.py``, ``ops/denoise_cuda.py``) adds to ``LAUNCHES[name]``
+the kernel launches it makes (``count``), and nowhere else, so a run can show
+that the main path went through the kernels. A CUDA graph replay
+(``models/programs.py``) calls no wrapper: while a thread captures a graph,
+its wrappers count into the capture's own record (``recording``), which
+launches nothing and so adds nothing to ``LAUNCHES``, and every replay adds
+that record (``add_launches``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -45,8 +50,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "remode_sweep": [_P] * 9 + [_I] * 5 + [_F, _I, _P],
-    "remode_sweep_lanes": [_P] * 9 + [_I] * 5 + [_F, _I, _P, _P],
+    "remode_sweep": [_P] * 9 + [_I] * 5 + [_F, _I, _P, _P],
+    "remode_sweep_lanes": [_P] * 9 + [_I] * 5 + [_F, _I, _P, _P, _P],
     "remode_sweep_occupancy": [_I, _I, _P, _P],
     "remode_homography_warp": [_P] * 5 + [_I] * 6 + [_F] * 2 + [_I, _P],
     "remode_resample_rows": [_P] * 3 + [_I] * 4 + [_P],
@@ -57,11 +62,40 @@ _SIGNATURES = {
 _lib = None
 _lib_lock = threading.Lock()  # the node's worker thread launches TV-L1
 build_seconds = None
+_recording = threading.local()  # .counts: this thread's capture record, or None
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` launches of kernel ``name``: to the record of the capture
+    this thread is making, else to ``LAUNCHES``."""
+    counts = getattr(_recording, "counts", None)
+    (LAUNCHES if counts is None else counts)[name] += n
+
+
+@contextlib.contextmanager
+def recording():
+    """Count this thread's launches into the yielded dict instead of
+    ``LAUNCHES`` (what a CUDA graph being captured will launch on each
+    replay; other threads still count into ``LAUNCHES``)."""
+    saved = getattr(_recording, "counts", None)
+    counts = dict.fromkeys(LAUNCHES, 0)
+    _recording.counts = counts
+    try:
+        yield counts
+    finally:
+        _recording.counts = saved
+
+
+def add_launches(counts: dict) -> None:
+    """Add a replayed graph's recorded launches to ``LAUNCHES``."""
+    for k, n in counts.items():
+        if n:
+            count(k, n)
 
 
 def _nvcc() -> str:

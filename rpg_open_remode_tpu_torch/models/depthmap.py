@@ -4,8 +4,11 @@ include/rmd/depthmap.h:34-129, and ``SeedMatrix``, src/seed_matrix.cu).
 
 Functional core plus a thin stateful facade. Per frame, ``update_step``
 classifies the seeds, matches them (rectified NCC sweep), triangulates and
-fuses the measurement; it reads two scalars on the host (see
-``ops/rect_match``). Pose convention: callers pass ``T_curr_world``; the
+fuses the measurement. Given the matcher's regime (``regime``, chosen on
+the host by ``ops/rect_match.regime_index``) it reads nothing on the host,
+so the facade runs it as a captured CUDA graph (``models/programs.py``),
+one replay a frame; the functional core stays eager, the oracle of the
+replays. Pose convention: callers pass ``T_curr_world``; the
 engine stores ``T_world_ref = inv(T_curr_world)`` at keyframe creation and
 forms ``T_curr_ref = T_curr_world * T_world_ref`` per frame
 (src/seed_matrix.cu:108,124).
@@ -19,7 +22,8 @@ import numpy as np
 import torch
 
 from rpg_open_remode_tpu_torch.config import ConvergenceState, RemodeConfig
-from rpg_open_remode_tpu_torch.models.state import SceneParams, SeedState, empty_state
+from rpg_open_remode_tpu_torch.models import programs
+from rpg_open_remode_tpu_torch.models.state import SceneParams, SeedState
 from rpg_open_remode_tpu_torch.ops import denoise as denoise_ops
 from rpg_open_remode_tpu_torch.ops import (
     epipolar, propagate, reduction, seed_check, seed_init, seed_update,
@@ -63,9 +67,11 @@ def _set_reference_propagated(state: SeedState, ref_img, T_curr_world,
 
 
 def update_step(state: SeedState, curr_img, T_curr_world, cam: PinholeCamera,
-                cfg: RemodeConfig):
+                cfg: RemodeConfig, regime: int | None = None):
     """One measurement frame (SeedMatrix::update, seed_matrix.cu:120-158).
-    Returns ``(state', stats)``, stats a dict of 0-d tensors."""
+    Returns ``(state', stats)``, stats a dict of 0-d tensors. ``regime`` is
+    the rectified matcher's branch (``rect_match.regime_index``); None
+    reads the device's choice on the host."""
     curr_img = prep_image(curr_img)
     height, width = curr_img.shape
     T_curr_ref = se3.compose(T_curr_world, state.T_world_ref)
@@ -79,7 +85,7 @@ def update_step(state: SeedState, curr_img, T_curr_world, cam: PinholeCamera,
     state = dataclasses.replace(state, conv=conv1)
 
     # 2. epipolar NCC match (seedEpipolarMatchKernel)
-    result = epipolar.match(state, curr_img, T_curr_ref, cam, cfg)
+    result = epipolar.match(state, curr_img, T_curr_ref, cam, cfg, regime)
     active = conv1 == int(ConvergenceState.UPDATE)
     conv2 = epipolar.apply_match_to_conv(conv1, active, result.found)
 
@@ -143,6 +149,12 @@ def to_device(x, device, pose: bool = False) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.float32) if pose else np.asarray(x)).to(device)
 
 
+def _download(t: torch.Tensor) -> np.ndarray:
+    """A host copy of a state buffer (on the CPU ``.numpy()`` would share
+    the buffer, which later frames overwrite)."""
+    return t.cpu().numpy() if t.is_cuda else t.numpy().copy()
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means CUDA. Raises when CUDA is asked for and absent: the
     engine never drops to the CPU unless the caller passes ``"cpu"``."""
@@ -157,8 +169,10 @@ def resolve_device(device=None) -> torch.device:
 
 class Depthmap:
     """Facade mirroring ``rmd::Depthmap`` (include/rmd/depthmap.h): owns the
-    seed state on ``device``; downloads happen only in ``depthmap()``,
-    ``denoised_depthmap()``, ``convergence_map()`` and
+    seed state on ``device`` in the buffers of its ``programs``; on the
+    card ``set_reference_image``, ``update`` and each frame of
+    ``update_chunk`` are one CUDA graph replay. Downloads happen only in
+    ``depthmap()``, ``denoised_depthmap()``, ``convergence_map()`` and
     ``converged_percentage()``."""
 
     def __init__(self, width: int, height: int, fx: float, cx: float, fy: float,
@@ -166,18 +180,31 @@ class Depthmap:
         self.width = width
         self.height = height
         self.device = resolve_device(device)
-        # no explicit cfg: scale the reference constants to the focal length
-        self.cfg = cfg or RemodeConfig.for_camera(fx)
         self.cam = PinholeCamera.create(fx, fy, cx, cy, device=self.device)
-        self.state = empty_state(height, width, self.cam)
+        # no explicit cfg: scale the reference constants to the focal length
+        self.programs = programs.Programs(height, width, self.cam, (fx, fy),
+                                          cfg or RemodeConfig.for_camera(fx), self.device)
         self._has_reference = False
         self._undistort_grid = None
 
+    @property
+    def cfg(self) -> RemodeConfig:
+        """The engine's config, which its programs own."""
+        return self.programs.cfg
+
+    @property
+    def state(self) -> SeedState:
+        """A device copy of the seed state made at this read: later frames
+        and keyframes, which the programs write into the same buffers, do
+        not change it. Assigning a state restores it."""
+        return self.programs.snapshot()
+
+    @state.setter
+    def state(self, state: SeedState) -> None:
+        self.restore(state)
+
     def _tensor(self, x) -> torch.Tensor:
         return to_device(x, self.device)
-
-    def _pose(self, T) -> torch.Tensor:
-        return to_device(T, self.device, pose=True)
 
     def init_undistortion_map(self, k1, k2, p1, p2) -> None:
         self._undistort_grid = undistort_map(
@@ -185,7 +212,8 @@ class Depthmap:
         )
 
     def input_image(self, img) -> torch.Tensor:
-        """8-bit -> float [0, 1], then the optional undistortion remap."""
+        """8-bit -> float [0, 1], then the optional undistortion remap (what
+        the programs do to their input, eagerly)."""
         img = prep_image(self._tensor(img))
         if self._undistort_grid is not None:
             gu, gv = self._undistort_grid
@@ -194,63 +222,57 @@ class Depthmap:
 
     def restore(self, state: SeedState) -> None:
         """Adopt a keyframe state (e.g. one carried across with
-        ``state_from_numpy``)."""
+        ``state_from_numpy``): copied into the engine's buffers."""
         if state.shape != (self.height, self.width):
             raise ValueError(f"state shape {state.shape} != {(self.height, self.width)}")
-        self.state = state
+        self.programs.load(state)
         self._has_reference = True
 
     def set_reference_image(self, img, T_curr_world, min_depth, max_depth) -> bool:
         """New keyframe. With ``cfg.propagate_depth`` and a previous keyframe
         (and no undistortion grid, as in the JAX facade), the seeds are
         warm-started from the outgoing posterior; otherwise flat."""
-        scene = SceneParams.create(min_depth, max_depth, self.cfg, device=self.device)
-        img, T = self.input_image(img), self._pose(T_curr_world)
-        if self._undistort_grid is None and self.cfg.propagate_depth and self._has_reference:
-            self.state = _set_reference_propagated(self.state, img, T, scene, self.cam, self.cfg)
-        else:
-            self.state = set_reference(self.state, img, T, scene, self.cfg)
+        propagated = (self._undistort_grid is None and self.cfg.propagate_depth
+                      and self._has_reference)
+        self.programs.set_reference(img, T_curr_world, min_depth, max_depth, propagated,
+                                    self._undistort_grid)
         self._has_reference = True
         return True
 
     def update(self, img, T_curr_world) -> dict:
-        """One measurement frame; returns the frame's stats (0-d tensors)."""
+        """One measurement frame; returns the frame's stats (a fresh packed
+        ``[7]`` vector under ``packed`` and a float32 0-d view of it per
+        key of ``PACKED_STATS_KEYS``)."""
         if not self._has_reference:
             raise RuntimeError("set_reference_image must be called first")
-        self.state, stats = update_step(
-            self.state, self.input_image(img), self._pose(T_curr_world), self.cam,
-            self.cfg,
-        )
-        return stats
+        return self.programs.update(img, T_curr_world, self._undistort_grid)
 
     def update_chunk(self, imgs, Ts_curr_world) -> torch.Tensor:
-        """K frames (``imgs`` [K, H, W], ``Ts_curr_world`` [K, 3, 4]);
-        returns the ``[K, 7]`` packed metrics on the device."""
+        """K frames (``imgs`` [K, H, W], ``Ts_curr_world`` [K, 3, 4]), one
+        replay each with no host read between them; returns the ``[K, 7]``
+        packed metrics on the device."""
         if not self._has_reference:
             raise RuntimeError("set_reference_image must be called first")
-        imgs = [self.input_image(img) for img in imgs]
-        self.state, packed = update_chunk(
-            self.state, imgs, self._pose(Ts_curr_world), self.cam, self.cfg
-        )
-        return packed
+        return self.programs.update_chunk(imgs, Ts_curr_world, self._undistort_grid)
 
     def depthmap(self) -> np.ndarray:
-        return self.state.mu.cpu().numpy()
+        return _download(self.programs.state.mu)
 
     def denoised_depthmap(self, lam: float = 0.5, iterations: int = 200) -> np.ndarray:
-        return denoise_depthmap(self.state, self.cfg, lam=lam, iterations=iterations).cpu().numpy()
+        return denoise_depthmap(self.programs.state, self.cfg, lam=lam,
+                                iterations=iterations).cpu().numpy()
 
     def convergence_map(self) -> np.ndarray:
-        return self.state.conv.cpu().numpy()
+        return _download(self.programs.state.conv)
 
     def reference_image(self) -> np.ndarray:
         """The keyframe image, float [0, 1] (getReferenceImage,
         depthmap.cpp:141-145)."""
-        return self.state.ref_img.cpu().numpy()
+        return _download(self.programs.state.ref_img)
 
     def converged_percentage(self) -> float:
         """getConvergedPercentage (depthmap.cpp:150-154)."""
-        return float(self.state.converged_fraction()) * 100.0
+        return float(self.programs.state.converged_fraction()) * 100.0
 
     @staticmethod
     def scale_mat(depth: np.ndarray) -> np.ndarray:

@@ -3,13 +3,17 @@
 each absorb every incoming frame, and the staggered lifecycle loop that
 drives them (``remode run --keyframes N``).
 
-``BatchedDepthmap`` holds its slots as a list of frozen ``SeedState``s and
-runs ``models/depthmap.update_step`` once per slot per frame, unchanged (the
-JAX ring's ``lax.scan`` body), so each slot evolves bit for bit as a single
-``Depthmap`` fed alike. What the ring shares is the per-frame fixed cost:
-the current frame's upload and uint8 prep happen once for all slots. A slot
-is replaced, never written in place: ``MultiKeyframeNode`` hands a slot's
-state to its worker thread to finalize while the loop reseeds that slot.
+``BatchedDepthmap`` holds each slot in the buffers of its own
+``models/programs.Programs`` and runs ``models/depthmap.update_step`` once
+per slot per frame, unchanged (the JAX ring's ``lax.scan`` body): on the
+card each slot's update and reseed is one CUDA graph replay, with the
+slot's own buffers (a graph's addresses are fixed), graph pool and
+host-side regime, so each slot evolves bit for bit as a single
+``Depthmap`` fed alike. What the slots share is the frame's upload: one
+staged copy into the inputs all their programs read. What the worker
+holds is never written in place: ``keyframe_state`` is a copy made when it
+is read, which ``MultiKeyframeNode`` hands to its worker thread to
+finalize while the loop reseeds the slot.
 
 The ring keeps the full regime dispatch of ``ops/rect_match.match``
 (pure-rotation and plane-sweep fallbacks), as the JAX ring does.
@@ -21,14 +25,10 @@ import numpy as np
 import torch
 
 from rpg_open_remode_tpu_torch.config import ConvergenceState, RemodeConfig
-from rpg_open_remode_tpu_torch.models.depthmap import (
-    PACKED_STATS_KEYS, _set_reference_propagated, prep_image, resolve_device,
-    set_reference, to_device, update_step,
-)
+from rpg_open_remode_tpu_torch.models import programs
+from rpg_open_remode_tpu_torch.models.depthmap import PACKED_STATS_KEYS, resolve_device
 from rpg_open_remode_tpu_torch.models.node import LifecycleNode, _fetch
-from rpg_open_remode_tpu_torch.models.state import (
-    SceneParams, SeedState, empty_state, stack_states,
-)
+from rpg_open_remode_tpu_torch.models.state import SeedState, stack_states
 from rpg_open_remode_tpu_torch.utils.camera import PinholeCamera
 
 
@@ -44,58 +44,57 @@ class BatchedDepthmap:
         self.cam = PinholeCamera.create(fx, fy, cx, cy, device=self.device)
         self.n = n_keyframes
         self.height, self.width = height, width
-        self.slots: list[SeedState] = [empty_state(height, width, self.cam)] * n_keyframes
+        inputs = programs.Inputs(height, width, self.device)
+        self.programs = [
+            programs.Programs(height, width, self.cam, (fx, fy), self.cfg, self.device, inputs)
+            for _ in range(n_keyframes)
+        ]
+        self.inputs = inputs
         self._active = [False] * n_keyframes
-
-    def _image(self, img) -> torch.Tensor:
-        return prep_image(to_device(img, self.device))
-
-    def _pose(self, T) -> torch.Tensor:
-        return to_device(T, self.device, pose=True)
 
     def seed_keyframe(self, slot: int, img, T_curr_world, min_depth, max_depth) -> None:
         """New keyframe in ``slot``: warm-started from the slot's own
         outgoing posterior with ``cfg.propagate_depth`` once the slot is
         active, else flat."""
-        scene = SceneParams.create(min_depth, max_depth, self.cfg, device=self.device)
-        img, T = self._image(img), self._pose(T_curr_world)
-        if self.cfg.propagate_depth and self._active[slot]:
-            self.slots[slot] = _set_reference_propagated(
-                self.slots[slot], img, T, scene, self.cam, self.cfg)
-        else:
-            self.slots[slot] = set_reference(self.slots[slot], img, T, scene, self.cfg)
+        propagated = self.cfg.propagate_depth and self._active[slot]
+        self.programs[slot].set_reference(img, T_curr_world, min_depth, max_depth, propagated)
         self._active[slot] = True
 
     def restore(self, slot: int, state: SeedState) -> None:
         """Adopt a keyframe state in ``slot`` (e.g. one carried across with
-        ``states_from_numpy``)."""
+        ``states_from_numpy``): copied into the slot's buffers."""
         if state.shape != (self.height, self.width):
             raise ValueError(f"state shape {state.shape} != {(self.height, self.width)}")
-        self.slots[slot] = state
+        self.programs[slot].load(state)
         self._active[slot] = True
 
     def update(self, img, T_curr_world) -> dict:
         """Fuse one frame into every slot. Returns the stats with each key
-        shaped ``[B]`` and ``packed`` ``[B, 7]`` (``PACKED_STATS_KEYS``
+        a float32 ``[B]`` view of ``packed`` ``[B, 7]`` (``PACKED_STATS_KEYS``
         order), on the device."""
-        img, T = self._image(img), self._pose(T_curr_world)
-        per_slot = []
-        for s in range(self.n):
-            self.slots[s], stats = update_step(self.slots[s], img, T, self.cam, self.cfg)
-            per_slot.append(stats)
-        return {k: torch.stack([st[k] for st in per_slot]) for k in per_slot[0]}
+        dtype = self.inputs.load_image(img)
+        T_host = self.inputs.load_pose(T_curr_world)
+        for prog in self.programs:
+            prog.step(dtype, T_host)
+        return programs.stats_of(torch.stack([prog.packed for prog in self.programs]))
 
     def converged_fraction(self) -> np.ndarray:
         conv = self.states.conv.cpu().numpy()
         return (conv == int(ConvergenceState.CONVERGED)).mean(axis=(1, 2))
 
     def keyframe_state(self, slot: int) -> SeedState:
-        return self.slots[slot]
+        """A device copy of the slot's state, made at this read."""
+        return self.programs[slot].snapshot()
+
+    @property
+    def slots(self) -> list[SeedState]:
+        """A device copy of every slot's state, made at this read."""
+        return [prog.snapshot() for prog in self.programs]
 
     @property
     def states(self) -> SeedState:
         """The slots stacked ``[B, ...]`` (a copy, for inspection)."""
-        return stack_states(self.slots)
+        return stack_states([prog.state for prog in self.programs])
 
 
 class MultiKeyframeNode(LifecycleNode):

@@ -19,12 +19,15 @@ Two mechanisms keep the frame loop off the device's clock:
     synchronous). Which frame's stats the policy acts on depends only on
     frame counts, never on transfer timing, so the same stats give the same
     switch frames as the JAX node.
-  * **Finalization on a worker thread.** The finished keyframe's frozen
-    ``SeedState`` is handed to a one-thread executor that denoises it
-    (TV-L1), downloads it and calls ``on_keyframe``, while the loop
-    re-seeds. The worker launches on the stream that was current on the
-    loop's thread at the switch, so its reads of the snapshot are ordered
-    after the frame that wrote it, and no side stream is involved.
+  * **Finalization on a worker thread.** The finished keyframe's state,
+    ``engine.state`` (a device copy made at the switch: the engine's
+    programs keep writing their own buffers), is handed to a one-thread
+    executor that denoises it (TV-L1), downloads it and calls
+    ``on_keyframe``, while the loop re-seeds. The worker launches on the
+    stream that was current on the loop's thread at the switch, so its
+    reads of the snapshot are ordered after the copy, and no side stream
+    is involved. The stats vector a frame returns is a copy too, made in
+    stream order right after the frame's replay, which ``_fetch`` reads.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ import numpy as np
 import torch
 
 from rpg_open_remode_tpu_torch.config import RemodeConfig
-from rpg_open_remode_tpu_torch.io.pointcloud import convergence_overlay
+from rpg_open_remode_tpu_torch.io.pointcloud import tint_convergence
 from rpg_open_remode_tpu_torch.models.depthmap import (
     PACKED_STATS_KEYS, Depthmap, denoise_depthmap,
 )
@@ -212,7 +215,8 @@ class DepthmapNode(LifecycleNode):
         # only for a registered consumer, on the worker thread
         n_conv = self.cfg.publish_conv_every_n
         if self.on_convergence is not None and n_conv > 0 and self.num_msgs % n_conv == 0:
-            self._submit(self._publish_convergence, self.engine.state)
+            st = self.engine.programs.state   # copies of the two planes it reads
+            self._submit(self._publish_convergence, st.ref_img.clone(), st.conv.clone())
         out = {"event": "updated"}
         if self._n_updates % self.policy_stride == 0:
             host, event = _fetch(stats["packed"])
@@ -249,8 +253,8 @@ class DepthmapNode(LifecycleNode):
         self.metrics.log(frame_no, stats)
         return stats
 
-    def _publish_convergence(self, snapshot: SeedState) -> None:
-        self.on_convergence(convergence_overlay(snapshot))
+    def _publish_convergence(self, ref_img: torch.Tensor, conv: torch.Tensor) -> None:
+        self.on_convergence(tint_convergence(ref_img, conv))
 
     # -- keyframe completion (denoiseAndPublishResults, :165-182) ------------
 

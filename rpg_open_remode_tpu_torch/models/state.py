@@ -6,7 +6,9 @@ The reference keeps this state as mutable pitched device buffers owned by
 ``SeedState`` is replaced per frame; every image-shaped field is ``[H, W]``.
 ``state_from_numpy``/``state_to_numpy`` carry a state across from and to the
 JAX package as numpy arrays, ``states_from_numpy`` a JAX keyframe ring's
-batched state.
+batched state. ``copy_into`` writes a state into a persistent set of
+buffers (the fixed addresses a captured CUDA graph reads and writes,
+``models/programs.py``) and ``clone`` copies one out.
 """
 
 from __future__ import annotations
@@ -35,8 +37,15 @@ class SceneParams:
 
     @classmethod
     def create(cls, min_depth, max_depth, cfg: RemodeConfig, device=None) -> "SceneParams":
-        min_d = torch.tensor(float(min_depth), dtype=torch.float32, device=device)
-        max_d = torch.tensor(float(max_depth), dtype=torch.float32, device=device)
+        bounds = torch.tensor([float(min_depth), float(max_depth)], dtype=torch.float32,
+                              device=device)
+        return cls.from_bounds(bounds, cfg)
+
+    @classmethod
+    def from_bounds(cls, bounds: torch.Tensor, cfg: RemodeConfig) -> "SceneParams":
+        """From a float32 ``[2]`` tensor (min depth, max depth) on the
+        device, by device operations only."""
+        min_d, max_d = bounds[0], bounds[1]
         rng = max_d - min_d
         return cls(
             min_depth=min_d,
@@ -97,6 +106,29 @@ def empty_state(height: int, width: int, cam: PinholeCamera) -> SeedState:
         T_world_ref=se3.identity(dev),
         scene=SceneParams.create(0.0, 1.0, RemodeConfig(), device=dev),
     )
+
+
+def _leaves(state: SeedState) -> list[torch.Tensor]:
+    return ([getattr(state, f.name) for f in dataclasses.fields(SeedState) if f.name != "scene"]
+            + [getattr(state.scene, f.name) for f in dataclasses.fields(SceneParams)])
+
+
+def copy_into(dst: SeedState, src: SeedState) -> None:
+    """Write ``src`` into the buffers of ``dst`` (same shapes and dtypes), in
+    stream order; a leaf that already is its buffer is skipped."""
+    for d, s in zip(_leaves(dst), _leaves(src)):
+        if s is not d:
+            d.copy_(s)
+
+
+def clone(state: SeedState) -> SeedState:
+    """A copy of ``state`` in fresh device memory, which nothing that
+    writes ``state`` later changes."""
+    scene = SceneParams(**{f.name: getattr(state.scene, f.name).clone()
+                           for f in dataclasses.fields(SceneParams)})
+    return SeedState(scene=scene, **{
+        f.name: getattr(state, f.name).clone()
+        for f in dataclasses.fields(SeedState) if f.name != "scene"})
 
 
 def state_from_numpy(arrays: dict, device=None) -> SeedState:

@@ -117,7 +117,9 @@ def sweep_counts(state: SeedState, curr_img, T_curr_world, cam: PinholeCamera,
     fine = call_work(p["curr_img_r"], p["xlim"], p["ref_img_r"], p["valid_r"], p["disp_lo"],
                      p["disp_hi"], cfg.ncc_threshold, cfg.num_planes, cfg.disp_pad,
                      cfg.patch_side, cfg.subplane_refine)
-    fired = p["coarse_args"] is not None
+    # the coarse pass is launched on every frame; its gate says whether it
+    # worked (a pass gated off writes "not found" and scores nothing)
+    fired = p["gate"] is not None and bool(p["gate"])
     coarse = (call_work(*p["coarse_args"]) if fired
               else dict(pairs=0.0, flops=0.0, flops_exec=0.0, bytes=0.0))
     lo, hi = p["disp_lo"], p["disp_hi"]

@@ -45,6 +45,6 @@ def tvl1(noisy, g, lam: float, iterations: int, cfg: RemodeConfig) -> torch.Tens
         float(cfg.tv_sigma), float(cfg.tv_tau), float(cfg.tv_theta),
         shrink_threshold(lam, cfg), ctypes.pointer(launches), kernels.stream_of(noisy),
     )
-    kernels.LAUNCHES["tvl1"] += launches.value
+    kernels.count("tvl1", launches.value)
     kernels.check(err, "tvl1")
     return a[0] if launches.value % 2 == 0 else b[0]

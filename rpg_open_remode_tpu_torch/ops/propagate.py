@@ -27,7 +27,10 @@ these choices).
 Device work: the 96 homographies ``H_back = inv(K (R + t n^T / d) K^-1)``
 are built in one batched ``torch.linalg.inv_ex`` on the engine's device,
 and the plane range stays on the device as 0-d tensors, so the sweep reads
-nothing on the host (the per-switch host read of the range is not taken).
+nothing on the host (the per-switch host read of the range is not taken)
+and the whole reseed is captured as one CUDA graph
+(``models/programs.py``; ``inv_ex`` captures, and its replay equals the
+eager call on the H100).
 The planes are warped ``WARP_CHUNK`` at a time (one kernel launch a chunk);
 each plane then takes some tens of small elementwise ops, in plane order.
 """

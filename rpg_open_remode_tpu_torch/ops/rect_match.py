@@ -9,14 +9,26 @@ homography warps); sweep integer disparities inside each pixel's Bayesian
 band (``ops/sweep_cuda``, a CUDA kernel on the GPU); back-warp the found
 matches and unrectify them.
 
-The JAX package's two traced branches are host branches here, one scalar
-read each per frame, with the same results: the coarse-pass gate
-(``lax.cond``) in ``prepare_sweep`` and the matcher choice (``lax.switch``)
-in ``match``.
+The JAX package's two traced branches are decided without a host read of
+the device, so that a frame step can be captured as one CUDA graph
+(``models/programs.py``):
+
+  * the coarse-pass gate (``lax.cond``) stays a 0-d bool on the device: the
+    coarse sweep is launched on every rectified frame with a pointer to it,
+    returns "not found" everywhere when it is off, and ``_coarse_narrow``
+    selects the narrowed bands only where it is on;
+  * the matcher (``lax.switch``) is chosen on the host by ``regime_index``
+    from host copies of the poses and the scene's mean depth, in the
+    device's float32 order of operations, and ``match`` runs that branch.
+    ``regime_device`` is the same choice computed on the device (the
+    oracle; ``match`` reads it when no regime is given).
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from rpg_open_remode_tpu_torch.config import ConvergenceState, RemodeConfig
@@ -42,13 +54,21 @@ def rect_shape(height: int, width: int) -> tuple[int, int]:
     return _round_up(height + 32, 64), _round_up(width + 64, 128)
 
 
+@functools.lru_cache(maxsize=None)
+def _constant(values: tuple, device) -> torch.Tensor:
+    """A small float32 constant on ``device``, uploaded once (at a step's
+    first, eager run) and then shared: an upload inside a CUDA graph capture
+    is not allowed, and one per frame would be a host sync."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def _corners(height, width, order: str, device) -> torch.Tensor:
     """Homogeneous image-corner matrix [4, 3]. order 'zigzag' =
     (0,0),(W,0),(0,H),(W,H); 'ring' = (0,0),(W,0),(W,H),(0,H)."""
     w1, h1 = width - 1.0, height - 1.0
     pts = ([(0.0, 0.0), (w1, 0.0), (0.0, h1), (w1, h1)] if order == "zigzag"
            else [(0.0, 0.0), (w1, 0.0), (w1, h1), (0.0, h1)])
-    return torch.tensor([[x, y, 1.0] for x, y in pts], dtype=torch.float32, device=device)
+    return _constant(tuple((x, y, 1.0) for x, y in pts), torch.device(device))
 
 
 def _rect_rotation(C: torch.Tensor) -> torch.Tensor:
@@ -57,8 +77,8 @@ def _rect_rotation(C: torch.Tensor) -> torch.Tensor:
     (Fusiello's construction)."""
     B = torch.linalg.norm(C)
     e1 = C / torch.clamp(B, min=1e-12)
-    z = torch.tensor([0.0, 0.0, 1.0], device=C.device)
-    y_alt = torch.tensor([0.0, 1.0, 0.0], device=C.device)
+    z = _constant((0.0, 0.0, 1.0), C.device)
+    y_alt = _constant((0.0, 1.0, 0.0), C.device)
     e2 = torch.linalg.cross(z, e1)
     n2 = torch.linalg.norm(e2)
     # forward motion (baseline ~ optical axis): fall back to the camera y-axis
@@ -158,18 +178,22 @@ def coarse_sweep_args(curr_pad, ref_img_r, valid_r, xlim, disp_lo, disp_hi,
             planes_h, pad_h, cfg.patch_side, False)
 
 
-def _coarse_narrow(coarse_args, disp_lo, disp_hi, cfg: RemodeConfig):
+def _coarse_narrow(coarse_args, disp_lo, disp_hi, cfg: RemodeConfig, gate=None):
     """Coarse-to-fine: localize each pixel's NCC peak on the half-resolution
     grid (``coarse_sweep_args``), then shrink its band to
     +-coarse_refine_radius planes around the peak. Pixels the coarse pass
-    cannot place keep their full band."""
-    d_c, _, found_c = disparity_sweep(*coarse_args)
+    cannot place keep their full band. ``gate`` (a 0-d bool on the device;
+    None: on) is the JAX package's ``lax.cond``: the sweep skips its work
+    when it is off, and every band is then kept as it was."""
+    d_c, _, found_c = disparity_sweep(*coarse_args, gate=gate)
     d_up = torch.repeat_interleave(2.0 * d_c, 2, dim=1)
     f_up = torch.repeat_interleave(found_c, 2, dim=1)
     r = cfg.coarse_refine_radius
     lo2 = torch.maximum(disp_lo, d_up - r)
     hi2 = torch.minimum(disp_hi, d_up + r)
     ok = f_up & (lo2 <= hi2)
+    if gate is not None:
+        ok = ok & gate   # torch.where(gate, narrowed, unnarrowed)
     return torch.where(ok, lo2, disp_lo), torch.where(ok, hi2, disp_hi)
 
 
@@ -245,8 +269,9 @@ def prepare_sweep(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
     """Everything ``match_rectified`` does before the full sweep:
     rectification warps, footprint interval, per-pixel disparity bands
     (Bayesian band intersected with the extent cap), disparity rebasing and
-    the coarse-to-fine narrowing. Returns the sweep inputs, and under
-    ``coarse_args`` the coarse pass's arguments (None when it did not run)."""
+    the coarse-to-fine narrowing. Returns the sweep inputs, under
+    ``coarse_args`` the coarse pass's arguments and under ``gate`` its 0-d
+    bool gate on the device (both None without ``cfg.coarse_to_fine``)."""
     height, width = curr_img.shape
     dev = curr_img.device
     pad = cfg.disp_pad
@@ -329,23 +354,25 @@ def prepare_sweep(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
     )
     disp_lo, disp_hi = k_lo, k_hi
 
-    coarse_args = None
+    coarse_args = gate = None
     if cfg.coarse_to_fine:
         # pay the coarse pass only while wide bands cover a meaningful
-        # fraction of the image (young keyframes); one host read per frame
+        # fraction of the image (young keyframes): the gate stays on the
+        # device, the arguments are always built, and the kernel skips its
+        # work when the gate is off
         extent = disp_hi - disp_lo
         wide_n = torch.isfinite(extent) & (extent > 2.0 * cfg.coarse_refine_radius + 2.0)
-        if bool(wide_n.float().mean() > 0.15):
-            coarse_args = coarse_sweep_args(
-                curr_img_r, ref_img_r, valid_r, xlim, disp_lo, disp_hi, cfg,
-            )
-            disp_lo, disp_hi = _coarse_narrow(coarse_args, disp_lo, disp_hi, cfg)
+        gate = wide_n.float().mean() > 0.15
+        coarse_args = coarse_sweep_args(
+            curr_img_r, ref_img_r, valid_r, xlim, disp_lo, disp_hi, cfg,
+        )
+        disp_lo, disp_hi = _coarse_narrow(coarse_args, disp_lo, disp_hi, cfg, gate)
 
     return dict(
         g=g, curr_img_r=curr_img_r.contiguous(), ref_img_r=ref_img_r.contiguous(),
         valid_r=valid_r.contiguous(), xlim=xlim.contiguous(),
         disp_lo=disp_lo.contiguous(), disp_hi=disp_hi.contiguous(), kbase=kbase,
-        coarse_args=coarse_args,
+        coarse_args=coarse_args, gate=gate,
     )
 
 
@@ -418,15 +445,17 @@ def match_pure_rotation(state: SeedState, curr_img, T_curr_ref, cam: PinholeCame
                        best_ncc=torch.where(ok, ncc, torch.full_like(ncc, -1.0)))
 
 
-def match(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
-          cfg: RemodeConfig) -> MatchResult:
-    """Rectified sweep with fallbacks for the two motion regimes
-    rectification cannot serve: near-zero baseline -> pure-rotation
-    matcher; an epipole inside/near either image footprint (axial motion)
-    -> inverse-depth plane sweep. One host read per frame picks the branch."""
+# matcher branches of ``match``, by regime index (the JAX lax.switch order)
+PURE_ROTATION, PLANE_SWEEP, RECTIFIED = 0, 1, 2
+
+
+def regime_device(state: SeedState, T_curr_ref, cam: PinholeCamera, cfg: RemodeConfig,
+                  height: int, width: int) -> torch.Tensor:
+    """The matcher branch as a 0-d int64 tensor on the device: near-zero
+    baseline -> PURE_ROTATION; an epipole inside/near either image
+    footprint (axial motion) -> PLANE_SWEEP; else RECTIFIED."""
     if not cfg.zero_baseline_fallback:
-        return match_rectified(state, curr_img, T_curr_ref, cam, cfg)
-    height, width = curr_img.shape
+        return torch.full((), RECTIFIED, dtype=torch.int64, device=T_curr_ref.device)
     R = se3.rotation(T_curr_ref)
     t = se3.translation(T_curr_ref)
     C = -R.T @ t
@@ -442,8 +471,64 @@ def match(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
     zero = B <= threshold
     if cfg.forward_motion_fallback:
         axial = _inside(C) | _inside(t)
-        idx = torch.where(zero, 0, torch.where(axial, 1, 2))
-    else:
-        idx = torch.where(zero, 0, 2)
-    branch = (match_pure_rotation, epipolar.match_planesweep, match_rectified)[int(idx)]
+        return torch.where(zero, PURE_ROTATION, torch.where(axial, PLANE_SWEEP, RECTIFIED))
+    return torch.where(zero, PURE_ROTATION, RECTIFIED)
+
+
+def _mm(A: np.ndarray, B: np.ndarray) -> np.ndarray:
+    """float32 matrix product with every sum taken left to right."""
+    A, B = np.asarray(A, np.float32), np.asarray(B, np.float32)
+    out = A[..., :, 0, None] * B[..., None, 0, :]
+    for k in range(1, A.shape[-1]):
+        out = out + A[..., :, k, None] * B[..., None, k, :]
+    return out
+
+
+def regime_index(T_curr_world, T_world_ref, avg_depth, fx, fy, height: int, width: int,
+                 cfg: RemodeConfig) -> int:
+    """``regime_device`` from host copies, in numpy float32 and in the same
+    order of operations: ``T_curr_ref = T_curr_world * T_world_ref``, the
+    baseline ``C = -R^T t`` and its length ``B``, the zero-baseline threshold
+    ``1e-5 avg_depth + 1e-9``, the epipole tests on ``C`` and ``t``.
+    ``T_*`` are (3, 4) arrays, ``avg_depth``, ``fx``, ``fy`` the float32
+    values the device holds. The choice can differ from the device's only
+    where ``B`` or an epipole coordinate lies within a rounding of its
+    threshold."""
+    if not cfg.zero_baseline_fallback:
+        return RECTIFIED
+    f32 = np.float32
+    A = np.asarray(T_curr_world, f32)
+    W = np.asarray(T_world_ref, f32)
+    R = _mm(A[:, :3], W[:, :3])
+    t = _mm(A[:, :3], W[:, 3:])[:, 0] + A[:, 3]
+    C = _mm(-R.T, t[:, None])[:, 0]
+    B = np.sqrt(np.sum(C * C, dtype=f32), dtype=f32)
+    threshold = f32(1e-5) * f32(avg_depth) + f32(1e-9)
+    m_x, m_y = f32(0.75 * width), f32(0.75 * height)
+    fx, fy = f32(fx), f32(fy)
+
+    def _inside(e):
+        return bool((abs(fx * e[0]) < m_x * abs(e[2])) & (abs(fy * e[1]) < m_y * abs(e[2])))
+
+    if B <= threshold:
+        return PURE_ROTATION
+    if cfg.forward_motion_fallback and (_inside(C) or _inside(t)):
+        return PLANE_SWEEP
+    return RECTIFIED
+
+
+def match(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
+          cfg: RemodeConfig, regime: int | None = None) -> MatchResult:
+    """Rectified sweep with fallbacks for the two motion regimes
+    rectification cannot serve: near-zero baseline -> pure-rotation
+    matcher; an epipole inside/near either image footprint (axial motion)
+    -> inverse-depth plane sweep. ``regime`` (``regime_index``, from host
+    copies) picks the branch; without it the device's choice
+    (``regime_device``) is read on the host."""
+    if not cfg.zero_baseline_fallback:
+        return match_rectified(state, curr_img, T_curr_ref, cam, cfg)
+    if regime is None:
+        height, width = curr_img.shape
+        regime = int(regime_device(state, T_curr_ref, cam, cfg, height, width))
+    branch = (match_pure_rotation, epipolar.match_planesweep, match_rectified)[regime]
     return branch(state, curr_img, T_curr_ref, cam, cfg)

@@ -61,7 +61,7 @@ def resample_rows(img: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         kernels.stream_of(img),
     )
     kernels.check(err, "resample_rows")
-    kernels.LAUNCHES["resample_rows"] += 1
+    kernels.count("resample_rows")
     return out
 
 
@@ -79,5 +79,5 @@ def resample_cols(img: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         kernels.stream_of(img),
     )
     kernels.check(err, "resample_cols")
-    kernels.LAUNCHES["resample_cols"] += 1
+    kernels.count("resample_cols")
     return out

@@ -10,6 +10,11 @@ validity, the textureless guards, the footprint x-interval ``xlim`` and the
 per-pixel band [dlo - 0.5, dhi + 0.5]; a running best with a strict ``>``;
 3-point parabolic refinement. Returns ``(disp, ncc, found)``.
 
+``gate`` (a 0-d bool tensor on the inputs' device, or None for on) is the
+coarse pass's ``lax.cond`` of the JAX package: the kernel reads it on the
+device, and when it is off every pixel comes back not found (disp -10,
+ncc -1, found False), as if no band admitted a plane. No host reads it.
+
 The block plane intervals of the Pallas wrapper are TPU scheduling: the
 kernel spreads each tile's admitted (pixel, plane) pairs over its threads
 instead. ``sweep_lanes`` runs the kernel's counting build, which measures
@@ -38,13 +43,31 @@ def box_zero(x: torch.Tensor, side: int) -> torch.Tensor:
     return window_sum(window_sum(p, side, -1), side, -2)
 
 
+def _not_found(ref_img):
+    shape, dev = ref_img.shape, ref_img.device
+    return (torch.full(shape, -10.0, device=dev), torch.full(shape, -1.0, device=dev),
+            torch.zeros(shape, dtype=torch.bool, device=dev))
+
+
 def disparity_sweep_plain(
     curr_pad, xlim, ref_img, valid, disp_lo, disp_hi,
     ncc_threshold: float, num_planes: int, pad: int, patch_side: int,
-    subplane_refine: bool,
+    subplane_refine: bool, gate=None,
 ):
     """The sweep with one whole-image tensor op per step (port of
-    rect_match._sweep_xla)."""
+    rect_match._sweep_xla). A gate that is off gives the not-found result
+    (on the CPU the gate is read; elsewhere the result is selected)."""
+    if gate is not None and not gate.is_cuda and not bool(gate):
+        return _not_found(ref_img)
+    out = _sweep_plain(curr_pad, xlim, ref_img, valid, disp_lo, disp_hi, ncc_threshold,
+                       num_planes, pad, patch_side, subplane_refine)
+    if gate is None or not gate.is_cuda:
+        return out
+    return tuple(torch.where(gate, a, b) for a, b in zip(out, _not_found(ref_img)))
+
+
+def _sweep_plain(curr_pad, xlim, ref_img, valid, disp_lo, disp_hi, ncc_threshold,
+                 num_planes, pad, patch_side, subplane_refine):
     rect_h, rect_w = ref_img.shape
     side = patch_side
     area = float(side * side)
@@ -106,7 +129,7 @@ def disparity_sweep_plain(
     return kf, best, found
 
 
-def _launch(args, lanes=None):
+def _launch(args, lanes=None, gate=None):
     """Validate the inputs and launch the kernel (its counting build, adding
     into the int64 tensor ``lanes``, when one is given)."""
     (curr_pad, xlim, ref_img, valid, disp_lo, disp_hi,
@@ -121,6 +144,8 @@ def _launch(args, lanes=None):
     for name, t in (("ref_img", ref_img), ("valid", valid),
                     ("disp_lo", disp_lo), ("disp_hi", disp_hi)):
         kernels.require(t, name, (h, w))
+    if gate is not None:
+        kernels.require(gate, "gate", (), torch.bool)
     dev = ref_img.device
     disp = torch.empty((h, w), dtype=torch.float32, device=dev)
     ncc = torch.empty((h, w), dtype=torch.float32, device=dev)
@@ -128,7 +153,7 @@ def _launch(args, lanes=None):
     ptrs = [t.data_ptr() for t in (curr_pad, xlim, ref_img, valid, disp_lo, disp_hi,
                                    disp, ncc, found)]
     scalars = [h, w, pad, num_planes, patch_side, float(ncc_threshold),
-               int(bool(subplane_refine))]
+               int(bool(subplane_refine)), None if gate is None else gate.data_ptr()]
     lib = kernels.library()
     if lanes is None:
         err = lib.remode_sweep(*ptrs, *scalars, kernels.stream_of(ref_img))
@@ -137,23 +162,24 @@ def _launch(args, lanes=None):
         err = lib.remode_sweep_lanes(*ptrs, *scalars, lanes.data_ptr(),
                                      kernels.stream_of(ref_img))
     kernels.check(err, "sweep")
-    kernels.LAUNCHES["sweep"] += 1
+    kernels.count("sweep")
     return disp, ncc, found
 
 
 def disparity_sweep(
     curr_pad, xlim, ref_img, valid, disp_lo, disp_hi,
     ncc_threshold: float, num_planes: int, pad: int, patch_side: int,
-    subplane_refine: bool,
+    subplane_refine: bool, gate=None,
 ):
     """Run the sweep: the CUDA kernel on CUDA tensors, the plain version on
     CPU tensors. ``curr_pad`` [H, W + 2 pad], ``xlim`` [H, 2], the rest
-    [H, W]. Returns ``(disp, ncc, found)`` on the rect grid."""
+    [H, W], ``gate`` None or a 0-d bool. Returns ``(disp, ncc, found)`` on
+    the rect grid."""
     args = (curr_pad, xlim, ref_img, valid, disp_lo, disp_hi, ncc_threshold,
             num_planes, pad, patch_side, subplane_refine)
     if not ref_img.is_cuda:
-        return disparity_sweep_plain(*args)
-    return _launch(args)
+        return disparity_sweep_plain(*args, gate=gate)
+    return _launch(args, gate=gate)
 
 
 def sweep_lanes(*args) -> dict:

@@ -101,5 +101,5 @@ def homography_warp(img: torch.Tensor, H: torch.Tensor, out_h: int, out_w: int, 
         int(want_uv), kernels.stream_of(img),
     )
     kernels.check(err, "homography_warp")
-    kernels.LAUNCHES["warp"] += 1
+    kernels.count("warp")
     return out, u, v

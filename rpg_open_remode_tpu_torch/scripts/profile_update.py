@@ -12,7 +12,11 @@ phases are measured on the first frame after them (frame 8):
                     inputs: the classified post-warm-up state)
   seed_update       seed_update.update_seeds with frame 8's match
   stats             reduction.convergence_stats and the found-masked NCC sum
-  FULL update_step  K frames chained from the post-warm-up state
+  FULL update_step  K frames chained from the post-warm-up state, eager
+  FULL update_step (replayed)
+                    the same K frames as replays of the captured step
+                    (``models/programs.Programs``; each regime's program
+                    captured before the timing)
 
 Each phase runs K = 16 times (``utils/profiling.phase_ms``): ``device`` is
 the CUDA events' span over the K calls a call, ``wall`` the host clock from
@@ -79,7 +83,9 @@ def profile(width, height, device="cuda", k=K, warmup=WARMUP):
     ``{"phase", "device", "wall", "busy"}`` (ms a call), ``full_state`` the
     state the FULL update_step row's chain ends in."""
     from rpg_open_remode_tpu_torch.config import ConvergenceState
+    from rpg_open_remode_tpu_torch.models import programs
     from rpg_open_remode_tpu_torch.models.depthmap import prep_image, update_step
+    from rpg_open_remode_tpu_torch.models.state import copy_into
     from rpg_open_remode_tpu_torch.ops import epipolar, reduction, seed_check, seed_update
     from rpg_open_remode_tpu_torch.utils import se3
     from rpg_open_remode_tpu_torch.utils.profiling import force, phase_ms
@@ -105,6 +111,23 @@ def profile(width, height, device="cuda", k=K, warmup=WARMUP):
         chain[0], _ = update_step(chain[0], imgs[i], Ts[i], cam, cfg)
         return chain[0].mu
 
+    prog = programs.Programs(height, width, cam, (float(cam.fx), float(cam.fy)), cfg,
+                             imgs.device)
+    prog.load(state)
+    Ts_host = Ts.cpu().numpy()
+
+    def replayed(i):
+        if i == 0:
+            # the same keyframe: the host copies of its pose stay valid
+            copy_into(prog.state, state)
+        prog.inputs.images[torch.float32].copy_(imgs[i])
+        prog.inputs.pose.copy_(Ts[i])
+        prog.step(torch.float32, Ts_host[i])
+        return prog.state.mu
+
+    for i in range(k):   # capture every regime's program before the timing
+        replayed(i)
+
     phases = [
         ("classify", lambda i: seed_check.classify_seeds(
             state.mu, state.sigma_sq, state.a, state.b, state.scene.epsilon, border, cfg)),
@@ -117,6 +140,7 @@ def profile(width, height, device="cuda", k=K, warmup=WARMUP):
                              torch.sum(torch.where(res.found, res.best_ncc,
                                                    torch.zeros_like(res.best_ncc))))),
         ("FULL update_step", full),
+        ("FULL update_step (replayed)", replayed),
     ]
     rows = [dict(phase=name, **phase_ms(fn, k, imgs.device)) for name, fn in phases]
     return rows, chain[0]
@@ -126,7 +150,7 @@ def format_row(r, indent="") -> str:
     def ms(v):
         return "    n/a" if v is None else f"{v:7.3f}"
 
-    return (f"{indent}{r['phase']:20s} {ms(r['device'])} ms/iter device span, "
+    return (f"{indent}{r['phase']:28s} {ms(r['device'])} ms/iter device span, "
             f"{ms(r['wall'])} ms/iter wall, {ms(r['busy'])} ms/iter device busy")
 
 

@@ -79,7 +79,7 @@ def point(name, width, height, fx, fy, wu, device="cuda") -> dict:
     out = {"point": name, "patch": cfg.patch_side, "num_planes": cfg.num_planes,
            "rect_shape": list(prep["ref_img_r"].shape), "coarse_fired": False}
     passes = [("sweep", full)]
-    if prep["coarse_args"] is not None:
+    if prep["gate"] is not None and bool(prep["gate"]):
         out["coarse_fired"] = True
         passes.append(("coarse", prep["coarse_args"]))
     for label, args in passes:

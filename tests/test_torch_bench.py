@@ -172,7 +172,7 @@ def test_restored_passes_end_in_the_same_state():
 def test_profile_update_rows_and_full_state():
     rows, full = profile_update.profile(160, 120, "cpu", k=4)
     assert [r["phase"] for r in rows] == ["classify", "match(rect)", "seed_update", "stats",
-                                         "FULL update_step"]
+                                         "FULL update_step", "FULL update_step (replayed)"]
     for r in rows:
         assert r["wall"] > 0 and r["device"] is None and r["busy"] is None
     x = profile_update.setup(160, 120, "cpu", k=4)
@@ -185,7 +185,8 @@ def test_profile_update_rows_and_full_state():
 
 
 @pytest.mark.parametrize("module, phases", [
-    (profile_update, ["classify", "match(rect)", "seed_update", "stats", "FULL update_step"]),
+    (profile_update, ["classify", "match(rect)", "seed_update", "stats", "FULL update_step",
+                      "FULL update_step (replayed)"]),
     (profile_match, ["ref warp (6ch)", "curr warp (wide)", "sweep kernel", "back-warp (3ch)",
                      "FULL match"]),
 ])
@@ -196,7 +197,9 @@ def test_profile_scripts_print_every_phase(module, phases, capsys, monkeypatch, 
     lines = capsys.readouterr().out.splitlines()
     assert lines[0] == "cpu, power limit None W"
     for name in phases:
-        row = [ln for ln in lines if ln.strip().startswith(name + " ")]
+        # the name column: what precedes the first figure
+        row = [ln for ln in lines if " ms/iter" in ln
+               and ln.split(" ms/iter")[0].rsplit(None, 1)[0].strip() == name]
         assert len(row) == 1 and "ms/iter wall" in row[0], (name, lines)
     rows = json.loads((tmp_path / "p.json").read_text())["points"]["96x72"]
     assert [r["phase"] for r in rows] == phases

@@ -135,7 +135,10 @@ def test_ring_propagated_reseed_matches_jax():
                                    rtol=1e-4, atol=1e-5, err_msg=name)
     # the warm start carried depth, and slot 1 is untouched
     assert (np.abs(got.mu.numpy() - float(got.scene.avg_depth)) > 1e-3).any()
-    assert ring.keyframe_state(1) is kept
+    # (keyframe_state hands out a copy: the slot's buffers hold the same)
+    now = ring.keyframe_state(1)
+    for name in ("mu", "sigma_sq", "a", "b", "conv", "ref_img", "T_world_ref"):
+        assert torch.equal(getattr(now, name), getattr(kept, name)), name
 
 
 def test_ring_hovering_camera_takes_pure_rotation():

@@ -169,8 +169,12 @@ def test_worker_exception_reraised_at_close():
 
 
 def _cli(args, **kw):
+    # The child gets the thread count this module sets for itself: at the
+    # default (one thread a core) beside the other test workers, OpenMP
+    # oversubscribes the cores and a 10 s run takes minutes.
+    env = dict(os.environ, OMP_NUM_THREADS="2")
     return subprocess.run([sys.executable, "-m", "rpg_open_remode_tpu_torch.cli", *args],
-                          capture_output=True, text=True, timeout=600, cwd=ROOT, **kw)
+                          capture_output=True, text=True, timeout=600, cwd=ROOT, env=env, **kw)
 
 
 def test_cli_run_synthetic_propagate_checkpoint(tmp_path):
