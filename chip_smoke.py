@@ -1573,14 +1573,18 @@ MESH_CONV = {(1, 1, 1): 0.999, (1, 2, 2): 0.995, (2, 1, 2): 0.995}
 # readings (<= 0.01 %), below what one corrupted band row (up to 768
 # pixels, ~0.4 %) would give
 MESH_MU_P99 = 0.02
+# the switch frames of the CLI's mesh run when its node ran eagerly (NVIDIA
+# H100 80GB HBM3 at 700 W): printed beside the replayed ones
+MESH_SWITCH_EAGER_MS = "1293.7-1647.7"
 MESH_MU_REL = 0.028
 MESH_MU_OVER = 5e-4
 
 
 def slab_calls(torch, kept, keep_frame):
-    """Frame ``keep_frame``'s sweep and resample calls, plus the coarse
-    sweep of the last frame up to it that ran one (None when no frame did)."""
-    out = [(keep_frame, kind, args) for kind, args in kept[keep_frame]]
+    """Frame ``keep_frame``'s sweep and warp calls, plus the coarse sweep of
+    the last frame up to it that ran one (None when no frame did); a coarse
+    sweep whose device gate was off scores nothing and is left out."""
+    out = [(keep_frame, kind, args) for kind, args in kept[keep_frame] if kind != "sweep off"]
     coarse = [(i, kind, args) for i in sorted(kept) for kind, args in kept[i]
               if kind == "sweep" and not args[10]]
     if coarse and not any(kind == "sweep" and not args[10] for _, kind, args in out):
@@ -1588,15 +1592,30 @@ def slab_calls(torch, kept, keep_frame):
     return out
 
 
+def tiles_err(a, b):
+    """``max_err`` over every leaf of two ``local_block`` dicts."""
+    import torch
+
+    pairs = [(a[k], b[k]) for k in a if k != "scene"]
+    pairs += [(a["scene"][k], b["scene"][k]) for k in a["scene"]]
+    return max(max_err(torch.as_tensor(x), torch.as_tensor(y)) for x, y in pairs)
+
+
 def mesh_rank(mesh, io, frames, denoise):
     """One rank of a parallel-phase mesh (a spawned process): the ring of
-    one slot per kf row, seeded on frame 0 with the sharded reseed, stepped
-    over the other frames with the sharded step (slot 1 reseeded on
-    MESH_RESEED); launch counts zeroed before the steps. Keeps frames
-    COARSE_FROM..KEEP_FRAME's kernel calls (the band's slab shapes) and holds
-    each of KEEP_FRAME's, and the last coarse pass up to it, against its
-    plain version; times them; with ``denoise`` also runs the sharded
-    TV-L1. Returns the rank's tiles and figures."""
+    one slot per kf row, seeded on frame 0 with the sharded reseed and
+    stepped over the other frames (slot 1 reseeded on MESH_RESEED), twice
+    from the same start and frame by frame in turns: replayed (the mesh's
+    compiled programs, ``parallel.ShardedPrograms``) and eager (the
+    ``build_sharded_*`` functions they capture, given the programs' host
+    regime). Per frame and path: the
+    host-clock ms (synchronized), the launch counts and staged bytes it
+    added; the replayed (1, 1, 1) frames run under
+    ``set_sync_debug_mode("error")``. Keeps the eager frames
+    COARSE_FROM..KEEP_FRAME's kernel calls (the band's slab shapes) and
+    holds each of KEEP_FRAME's, and the last coarse pass up to it, against
+    its plain version; times them; with ``denoise`` also runs the sharded
+    TV-L1 both ways. Returns the rank's tiles and figures."""
     import torch
     import torch.distributed as dist
 
@@ -1604,7 +1623,7 @@ def mesh_rank(mesh, io, frames, denoise):
     from rpg_open_remode_tpu_torch.config import RemodeConfig
     from rpg_open_remode_tpu_torch.models.state import SceneParams, empty_state
     from rpg_open_remode_tpu_torch.parallel import (
-        build_sharded_denoise, build_sharded_reseed, build_sharded_update,
+        ShardedPrograms, build_sharded_denoise, build_sharded_reseed, build_sharded_update,
     )
     from rpg_open_remode_tpu_torch.parallel.distributed import local_block
     from rpg_open_remode_tpu_torch.parallel.sharded import tile_state
@@ -1618,36 +1637,83 @@ def mesh_rank(mesh, io, frames, denoise):
     cfg = RemodeConfig.for_camera(CAM_640["fx"])
     step = build_sharded_update(mesh, cam, cfg, h, w)
     reseed = build_sharded_reseed(mesh, cam, cfg, h, w)
+    progs = ShardedPrograms(mesh, h, w, cam, (CAM_640["fx"], CAM_640["fy"]), cfg)
+    one_rank = mesh.size == 1
 
-    def frame(j):
+    def counts():
+        torch.cuda.synchronize()
+        return dict(kernels.LAUNCHES), mesh.staged["bytes"]
+
+    def since(c0):
+        c1 = counts()
+        return {k: c1[0][k] - c0[0][k] for k in c0[0]}, c1[1] - c0[1]
+
+    def eager_inputs(j):
         img, T, bounds = frames[j]
         T = torch.tensor(T, device=dev)
-        return (torch.as_tensor(img).to(dev), T,
-                SceneParams.create(*bounds, cfg, device=dev))
+        return torch.as_tensor(img).to(dev), T, SceneParams.create(*bounds, cfg, device=dev)
 
-    img, T, scene = frame(0)
-    states = [tile_state(empty_state(h, w, cam), mesh)]
-    for slot in range(mesh.axis_size("kf")):
+    def reseed_both(slot, j):
+        nonlocal states
+        img, T, scene = eager_inputs(j)
         states = reseed(states, slot, img, se3.inv(T), scene)
+        progs.load_bounds(*frames[j][2])
+        progs.reseed(slot, se3.inv(progs.inputs.pose))
+
+    states = [tile_state(empty_state(h, w, cam), mesh)]
+    progs.load_frame(frames[0][0], frames[0][1])
+    for slot in range(mesh.axis_size("kf")):
+        reseed_both(slot, 0)
     torch.cuda.synchronize()
     kernels.reset_launches()
-    staged0 = mesh.staged["bytes"]
-    kept, frame_ms = {}, []
+    kept = {}
+    per = {"eager": [], "replay": []}   # per frame: (ms, launches, staged bytes)
+    debug_frames = 0
+    reseed_err = None
     for j in range(1, len(frames)):
-        img, T, scene = frame(j)
-        calls = kept.setdefault(j, []) if COARSE_FROM <= j <= KEEP_FRAME else None
-        t0 = time.perf_counter()
-        with intercept(None if calls is None else (lambda kind, args: calls.append((kind, args)))):
-            states, stats = step(states, img, T)
-        torch.cuda.synchronize()
-        frame_ms.append(1e3 * (time.perf_counter() - t0))
+        for which in (("eager", "replay") if j % 2 else ("replay", "eager")):
+            c0 = counts()
+            t0 = time.perf_counter()
+            if which == "eager":
+                calls = kept.setdefault(j, []) if COARSE_FROM <= j <= KEEP_FRAME else None
+                img, T, _ = eager_inputs(j)
+                # the programs' regime: the device's would add its own kf
+                # collective, which the replay does not run
+                regime = progs.regime(np.asarray(frames[j][1], np.float32))
+                with intercept(None if calls is None else
+                               (lambda kind, args: calls.append((kind, args)))):
+                    states, stats = step(states, img, T, regime)
+            else:
+                T_host = progs.load_frame(frames[j][0], frames[j][1])
+                prog = progs.cache.get(("step", progs.dtype, progs.regime(T_host)))
+                debug = one_rank and prog is not None and bool(prog.graphs)
+                if debug:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    progs.step(T_host)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                debug_frames += debug
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            per[which].append((ms, *since(c0)))
         if mesh.axis_size("kf") == 2 and j == MESH_RESEED:
-            states = reseed(states, 1, img, se3.inv(T), scene)
+            reseed_both(1, j)
+            reseed_err = tiles_err(local_block(progs.states), local_block(states))
     torch.cuda.synchronize()
+    step_prog = [p for key, p in progs.cache.items() if key[0] == "step"]
     out = dict(rank=mesh.rank, backend=mesh.backend, device=str(dev),
-               launches=dict(kernels.LAUNCHES), frame_ms=frame_ms,
-               staged_bytes=mesh.staged["bytes"] - staged0, state=local_block(states),
-               packed=stats["packed"].cpu().numpy())
+               frame_ms={k: [x[0] for x in v] for k, v in per.items()},
+               launches={k: [x[1] for x in v] for k, v in per.items()},
+               staged={k: [x[2] for x in v] for k, v in per.items()},
+               state=local_block(progs.states),
+               state_err=tiles_err(local_block(progs.states), local_block(states)),
+               reseed_err=reseed_err, debug_frames=debug_frames,
+               packed=progs.packed.cpu().numpy(),
+               packed_err=max_err(progs.packed, stats["packed"]),
+               exchange_points=[len(p.exchanges) for p in step_prog],
+               graphs=[len(p.graphs) for p in step_prog],
+               captures={p.label: p.capture_s for p in progs.captures()})
     # one rank at a time, so that no other rank's work shares the card
     for turn in range(mesh.size):
         if turn == mesh.rank:
@@ -1655,12 +1721,24 @@ def mesh_rank(mesh, io, frames, denoise):
         dist.barrier()
     if denoise:
         run = build_sharded_denoise(mesh, cfg, h, w, iterations=cfg.denoise_iters)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        den = run(states, cfg.denoise_lambda)
-        torch.cuda.synchronize()
-        out.update(denoise=np.stack([d.cpu().numpy() for d in den]),
-                   denoise_ms=1e3 * (time.perf_counter() - t0))
+        slots = list(range(len(states)))
+        den_ms = {}
+        for which in ("eager", "first call", "replay", "replay"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if which == "eager":
+                den = run(states, cfg.denoise_lambda)
+            else:
+                got = progs.denoise(slots, cfg.denoise_lambda)
+            torch.cuda.synchronize()
+            den_ms.setdefault(which, []).append(1e3 * (time.perf_counter() - t0))
+        (dprog,) = [p for key, p in progs.cache.items() if key[0] == "denoise"]
+        out.update(denoise=np.stack([d.cpu().numpy() for d in got]),
+                   denoise_err=max(max_err(g, d) for g, d in zip(got, den)),
+                   denoise_ms={k: min(v) for k, v in den_ms.items()},
+                   denoise_exchange_points=len(dprog.exchanges),
+                   denoise_capture_s=dprog.capture_s)
+    out["pool_mib"] = progs.pool_bytes() / 2 ** 20
     return out
 
 
@@ -1742,7 +1820,7 @@ def mesh_agreement(P, got, eng):
     """conv agreement of a gathered slot with a single engine; over the
     pixels converged in both, the relative difference of mu (median, p99,
     max, and how many exceed MESH_MU_REL) and its max for sigma_sq; whether
-    mu, sigma_sq and conv are equal bit for bit."""
+    mu, sigma_sq, a, b and conv are equal bit for bit."""
     conv, want = got["conv"], eng.state.conv.cpu().numpy()
     both = (conv == int(P.ConvergenceState.CONVERGED)) & (want == int(P.ConvergenceState.CONVERGED))
 
@@ -1753,21 +1831,28 @@ def mesh_agreement(P, got, eng):
     mu, sig = rel("mu"), rel("sigma_sq")
     q = np.percentile(mu, [50, 99, 100]) if mu.size else [float("nan")] * 3
     exact = all(np.array_equal(got[f], getattr(eng.state, f).cpu().numpy())
-                for f in ("mu", "sigma_sq", "conv"))
+                for f in ("mu", "sigma_sq", "a", "b", "conv"))
     return dict(conv=float((conv == want).mean()), converged=int(both.sum()),
                 mu_rel_median=float(q[0]), mu_rel_p99=float(q[1]), mu_rel_max=float(q[2]),
                 mu_over=int((mu > MESH_MU_REL).sum()),
                 sigma_sq_rel_max=float(sig.max()) if sig.size else float("nan"), exact=exact)
 
 
+def fmt_ms(xs):
+    return f"median {np.median(xs):.3f} ms, p90 {np.percentile(xs, 90):.3f} ms"
+
+
 def mesh_phase(torch, P, kernels, frames640):
     """The device mesh on the card: the sharded step at each MESH_SHAPES
-    over the first MESH_FRAMES frames against the single engine, the kernel
+    over the first MESH_FRAMES frames, replayed (the mesh's compiled
+    programs) and eager from the same start, in turns, held to each other
+    bit for bit (states, the reseeded slot, the TV-L1 at MESH_DENOISE;
+    launches and staged bytes a frame) and to the single engine, the kernel
     calls of the band slabs against their plain versions, the sharded TV-L1
-    at MESH_DENOISE against the single-device one, and the CLI's ``run
-    --mesh 2,1,2 --keyframes 2 --propagate``. Ranks are spawned processes
-    sharing the card (gloo collectives, staged through pinned host memory)
-    or, for one rank, NCCL."""
+    against the single-device one, and the CLI's ``run --mesh 2,1,2
+    --keyframes 2 --propagate``. Ranks are spawned processes sharing the
+    card (gloo collectives, staged through pinned host memory) or, for one
+    rank, NCCL."""
     from rpg_open_remode_tpu_torch.models.depthmap import denoise_depthmap
     from rpg_open_remode_tpu_torch.parallel import join_state_numpy, run_ranks
 
@@ -1776,8 +1861,8 @@ def mesh_phase(torch, P, kernels, frames640):
     refs, ref_ms = mesh_reference(torch, P, frames)
     out = dict(single_ms_median=float(np.median(ref_ms)),
                single_ms_p90=float(np.percentile(ref_ms, 90)), meshes={})
-    log(f"  single engine, first {MESH_FRAMES} frames: per frame median "
-        f"{out['single_ms_median']:.3f} ms, p90 {out['single_ms_p90']:.3f} ms")
+    log(f"  single engine (replayed), first {MESH_FRAMES} frames: per frame "
+        f"{fmt_ms(ref_ms)} (CUDA events)")
     bad = []
     for shape in MESH_SHAPES:
         t0 = time.perf_counter()
@@ -1785,25 +1870,48 @@ def mesh_phase(torch, P, kernels, frames640):
                           timeout=600)
         got = join_state_numpy([r["state"] for r in ranks], shape)
         n = len(ranks)
-        ms = np.array(ranks[0]["frame_ms"])
+        ms = {k: np.array(v) for k, v in ranks[0]["frame_ms"].items()}
         r = dict(seconds=time.perf_counter() - t0, backend=ranks[0]["backend"],
-                 devices=[x["device"] for x in ranks], frame_ms_median=float(np.median(ms)),
-                 frame_ms_p90=float(np.percentile(ms, 90)),
-                 staged_bytes_per_frame=sum(x["staged_bytes"] for x in ranks) / len(ms),
-                 launches=[x["launches"] for x in ranks], slots=[], calls=[])
+                 devices=[x["device"] for x in ranks],
+                 frame_ms_median=float(np.median(ms["replay"])),
+                 frame_ms_p90=float(np.percentile(ms["replay"], 90)),
+                 eager_ms_median=float(np.median(ms["eager"])),
+                 eager_ms_p90=float(np.percentile(ms["eager"], 90)),
+                 staged_bytes_per_frame=sum(sum(x["staged"]["replay"]) for x in ranks) / len(
+                     ms["replay"]),
+                 launches=[{k: sum(f[k] for f in x["launches"]["replay"]) for k in
+                            x["launches"]["replay"][0]} for x in ranks],
+                 state_err=max(x["state_err"] for x in ranks),
+                 packed_err=max(x["packed_err"] for x in ranks),
+                 reseed_err=None if shape[0] != 2 else max(x["reseed_err"] for x in ranks),
+                 exchange_points=ranks[0]["exchange_points"], graphs=ranks[0]["graphs"],
+                 captures=[x["captures"] for x in ranks], pool_mib=[x["pool_mib"] for x in ranks],
+                 debug_frames=ranks[0]["debug_frames"], slots=[], calls=[])
+        same_counts = all(x["launches"]["replay"] == x["launches"]["eager"]
+                          and x["staged"]["replay"] == x["staged"]["eager"] for x in ranks)
+        log(f"  mesh {shape}: replayed against eager from the same start, max err states "
+            f"{r['state_err']:.3g}, packed stats {r['packed_err']:.3g}"
+            + ("" if r["reseed_err"] is None else
+               f", the slot reseeded on frame {MESH_RESEED} {r['reseed_err']:.3g}")
+            + f"; launches and staged bytes of every frame equal: {same_counts}")
+        if r["state_err"] != 0.0 or r["packed_err"] != 0.0 or r["reseed_err"] or not same_counts:
+            bad.append(f"{shape}: the replayed run differs from the eager run")
         for k in range(shape[0]):
-            a = mesh_agreement(P, {f: got[f][k] for f in ("conv", "mu", "sigma_sq")}, refs[k])
+            a = mesh_agreement(P, {f: got[f][k] for f in ("conv", "mu", "sigma_sq", "a", "b")},
+                               refs[k])
             r["slots"].append(a)
             ok = a["conv"] >= MESH_CONV[shape] and (
                 not a["converged"] or (a["mu_rel_p99"] <= MESH_MU_P99
                                        and a["mu_over"] <= MESH_MU_OVER * a["converged"]))
+            if shape == (1, 1, 1):
+                ok = ok and a["exact"]   # the single engine's replay, bit for bit
             log(f"  mesh {shape} slot {k} (seeded on frame {0 if k == 0 else MESH_RESEED}) "
-                f"against a single Depthmap: conv agreement {a['conv']:.5f} (>= "
-                f"{MESH_CONV[shape]}); {a['converged']} pixels converged in both, mu rel diff "
+                f"replayed against a single Depthmap (replayed): conv agreement {a['conv']:.5f} "
+                f"(>= {MESH_CONV[shape]}); {a['converged']} pixels converged in both, mu rel diff "
                 f"median {a['mu_rel_median']:.3g}, p99 {a['mu_rel_p99']:.3g} (<= {MESH_MU_P99}), "
                 f"max {a['mu_rel_max']:.4g} (MULTICHIP_r05 read {MESH_MU_REL}), {a['mu_over']} "
                 f"pixels above {MESH_MU_REL} (<= {MESH_MU_OVER * a['converged']:.0f}); sigma_sq "
-                f"max {a['sigma_sq_rel_max']:.3g}; mu, sigma_sq and conv bit-exact "
+                f"max {a['sigma_sq_rel_max']:.3g}; mu, sigma_sq, a, b and conv bit-exact "
                 f"{a['exact']}{'' if ok else ' OUTSIDE'}")
             if not ok:
                 bad.append(f"{shape} slot {k}")
@@ -1831,19 +1939,38 @@ def mesh_phase(torch, P, kernels, frames640):
                                     iterations=cfg.denoise_iters).cpu().numpy()
             err = np.abs(den - want)
             ok = bool((err <= 1e-5 + 1e-4 * np.abs(want)).all())
-            r["denoise"] = dict(ms=max(x["denoise_ms"] for x in ranks), max_abs_err=float(err.max()),
-                                within=ok)
+            rep_err = max(x["denoise_err"] for x in ranks)
+            d_ms = {k: max(x["denoise_ms"][k] for x in ranks) for k in ranks[0]["denoise_ms"]}
+            r["denoise"] = dict(ms=d_ms["replay"], eager_ms=d_ms["eager"],
+                                first_call_ms=d_ms["first call"], max_abs_err=float(err.max()),
+                                within=ok, replay_err=rep_err,
+                                exchange_points=ranks[0]["denoise_exchange_points"],
+                                capture_s=[x["denoise_capture_s"] for x in ranks])
             log(f"  mesh {shape} sharded TV-L1 ({cfg.denoise_iters} iterations, 1-px halos, "
-                f"plain PyTorch): {r['denoise']['ms']:.1f} ms; against the single-device "
+                f"plain PyTorch): replayed {d_ms['replay']:.1f} ms, eager {d_ms['eager']:.1f} ms, "
+                f"first call (eager warm-up and capture) {d_ms['first call']:.1f} ms (slowest "
+                f"rank); {r['denoise']['exchange_points']} exchange points, so "
+                f"{r['denoise']['exchange_points'] + 1} graph segments; capture "
+                f"{', '.join(f'{c or 0.0:.2f}' for c in r['denoise']['capture_s'])} s per rank; "
+                f"replayed against eager max err {rep_err:.3g}; against the single-device "
                 f"denoise max abs err {err.max():.3g} (rtol 1e-4, atol 1e-5: "
                 f"{'ok' if ok else 'OUTSIDE'})")
-            if not ok:
+            if not ok or rep_err != 0.0:
                 bad.append(f"{shape} denoise")
+        caps = [f"{max(c.values()):.3f}" for c in r["captures"] if c] or ["none"]
         log(f"  mesh {shape}: {n} rank(s), backend {r['backend']}, devices {r['devices']}; "
-            f"sharded step per frame median {r['frame_ms_median']:.3f} ms, p90 "
-            f"{r['frame_ms_p90']:.3f} ms (rank 0, host clock, synchronized); staged "
-            f"{r['staged_bytes_per_frame'] / 1e6:.3f} MB per frame over all ranks; launches "
-            f"per rank {r['launches']}; {r['seconds']:.1f} s")
+            f"sharded step per frame (rank 0, host clock, synchronized, in turns) replayed "
+            f"{fmt_ms(ms['replay'])}, eager {fmt_ms(ms['eager'])}; {r['exchange_points']} "
+            f"exchange points a frame ({r['graphs']} graphs); slowest capture per rank "
+            f"{', '.join(caps)} s; graph pool {', '.join(f'{m:.1f}' for m in r['pool_mib'])} "
+            f"MiB per rank; staged {r['staged_bytes_per_frame'] / 1e6:.3f} MB per frame over all "
+            f"ranks; replayed launches per rank {r['launches']}; {r['seconds']:.1f} s")
+        if shape == (1, 1, 1):
+            log(f"  mesh {shape}: {r['debug_frames']} replayed frames under "
+                f"set_sync_debug_mode('error'): no host synchronization")
+            if r["debug_frames"] < MESH_FRAMES - 3 or r["graphs"] != [1]:
+                bad.append(f"{shape}: {r['debug_frames']} frames under sync debug, graphs "
+                           f"{r['graphs']}")
         missing = [(i, k) for i, x in enumerate(r["launches"]) for k in ("sweep", "warp")
                    if x[k] <= 0]
         if missing or not r["calls"]:
@@ -1886,7 +2013,7 @@ def mesh_cli(torch, kernels):
         log(f"    rank {x['rank']} ({x['device']}, {x['backend']}): launches {x['launches']}, "
             f"{x['keyframes']} keyframes exported, staged {x['staged']['bytes'] / 1e6:.1f} MB; "
             f"frames that finalized a keyframe (the sharded TV-L1 and the gather on the "
-            f"loop's thread) {sw} ms")
+            f"loop's thread, replayed) {sw} ms (the eager node's: {MESH_SWITCH_EAGER_MS} ms)")
     log(f"  the CLI's mesh run: {n_kf} keyframes, switches {res.switches}, {wall:.1f} s; per "
         f"frame median {r['frame_ms_median']:.3f} ms, p90 {r['frame_ms_p90']:.3f} ms (rank 0), "
         f"max {r['frame_ms_max']:.1f} ms (any rank)")

@@ -7,10 +7,14 @@ JAX package).
     frames 0, 2, 4 and 6) that each absorb every frame: keyframe-updates/s,
     and the gain over running the B keyframes one after another through
     the single engine (``B{B}_gain_vs_serial``, not divided by B);
-  - the full sharded step (``parallel.build_sharded_update``) on a (1,1,1)
-    mesh, a ``torch.distributed`` world of one rank started in this
-    process (NCCL on the card, gloo on the CPU), against B1: the cost of the
-    mesh wrapping without communication.
+  - the full sharded step on a (1,1,1) mesh, a ``torch.distributed`` world
+    of one rank started in this process (NCCL on the card, gloo on the
+    CPU), against B1: the cost of the mesh wrapping without communication.
+    The step is the mesh's compiled program (``parallel.ShardedPrograms``:
+    its regime chosen on the host, one CUDA graph replay a frame, as B1's
+    engine replays its own), timed in turns with the eager
+    ``parallel.build_sharded_update`` step it captures
+    (``sharded_mesh1_eager_updates_per_s``).
 
 40 synthetic 640x480 frames (the plain scene, seed 1) are staged on the
 device as uint8 once. Every figure is the best of 2 passes, each restored
@@ -50,24 +54,25 @@ def _best_of(passes, fn, n_calls, setup):
     return min(times)
 
 
-def _copy(states, device):
-    """Device copies of ``states`` (through the host; made outside any
-    timer)."""
-    from rpg_open_remode_tpu_torch.models.state import state_from_numpy, state_to_numpy
-
-    return [state_from_numpy(state_to_numpy(s), device=device) for s in states]
+MESH1_TURNS = ("eager", "replay", "replay", "eager")
 
 
-def sharded_mesh1(imgs, poses, bounds, width, height, cam, first, end, n_pass, device):
+def sharded_mesh1(imgs, poses, bounds, width, height, cam, first, end, device):
     """Seconds a frame of the sharded step on a (1,1,1) mesh over frames
     ``first`` .. ``end - 1`` after warm-up updates 1 .. ``first - 1``, in a
-    one-rank world that this call starts and ends."""
+    one-rank world that this call starts and ends: ``(replayed, eager)``,
+    each the best of its passes in ``MESH1_TURNS``, every pass restored
+    (untimed) to the same post-warm-up state."""
     import torch.distributed as dist
 
     from rpg_open_remode_tpu_torch.config import RemodeConfig
     from rpg_open_remode_tpu_torch.models.depthmap import Depthmap
-    from rpg_open_remode_tpu_torch.models.state import stack_states, state_to_numpy
-    from rpg_open_remode_tpu_torch.parallel import build_sharded_update, make_mesh, shard_state
+    from rpg_open_remode_tpu_torch.models.state import (
+        clone, copy_into, stack_states, state_to_numpy,
+    )
+    from rpg_open_remode_tpu_torch.parallel import (
+        ShardedPrograms, build_sharded_update, make_mesh,
+    )
     from rpg_open_remode_tpu_torch.parallel.distributed import initialize
     from rpg_open_remode_tpu_torch.parallel.launch import free_port
     from rpg_open_remode_tpu_torch.utils.profiling import force
@@ -82,25 +87,36 @@ def sharded_mesh1(imgs, poses, bounds, width, height, cam, first, end, n_pass, d
         eng = Depthmap(width, height, cam["fx"], cam["cx"], cam["fy"], cam["cy"], cfg=cfg,
                        device=device)
         eng.set_reference_image(imgs[0], poses[0], *bounds)
-        holder = [shard_state(state_to_numpy(stack_states([eng.state])), mesh)]
-        step = build_sharded_update(mesh, eng.cam, cfg, height, width)
+        progs = ShardedPrograms(mesh, height, width, eng.cam, (cam["fx"], cam["fy"]), cfg)
+        progs.load_numpy(state_to_numpy(stack_states([eng.state])))
         for i in range(1, first):
-            holder[0], _ = step(holder[0], imgs[i], poses[i])
-        force(holder[0][0].mu)
-        # JAX donates the sharded state and restores each pass from a copy;
-        # the copy is made here too, outside the timer
-        snap = _copy(holder[0], device)
+            progs.update(imgs[i], poses[i])
+        force(progs.states[0].mu)
+        snap = [clone(st) for st in progs.states]
+        step = build_sharded_update(mesh, eng.cam, cfg, height, width)
+        holder = [None]
 
         def reset():
-            holder[0] = _copy(snap, device)
+            for dst, src in zip(progs.states, snap):
+                copy_into(dst, src)
+            holder[0] = [clone(st) for st in snap]
             force(holder[0][0].mu)
 
-        def run():
+        def run_replay():
+            for i in range(first, end):
+                progs.step(progs.load_frame(imgs[i], poses[i]))
+            force(progs.states[0].mu)
+
+        def run_eager():
             for i in range(first, end):
                 holder[0], _ = step(holder[0], imgs[i], poses[i])
             force(holder[0][0].mu)
 
-        return _best_of(n_pass, run, end - first, reset)
+        times = {"replay": [], "eager": []}
+        for which in MESH1_TURNS:
+            times[which].append(_best_of(1, run_replay if which == "replay" else run_eager,
+                                         end - first, reset))
+        return min(times["replay"]), min(times["eager"])
     finally:
         dist.destroy_process_group()
 
@@ -180,9 +196,10 @@ def run(device="cuda", width=640, height=480, cam=CAM_640, n_frames=40, end=36,
         out[f"B{B}_gain_vs_serial"] = round((B / per) / out["B1_updates_per_s"], 3)
         del beng, snap_bb
 
-    per = sharded_mesh1(imgs, poses, bounds(frames[0]), width, height, cam, 6, end, n_pass,
-                        device)
+    per, per_eager = sharded_mesh1(imgs, poses, bounds(frames[0]), width, height, cam, 6, end,
+                                   device)
     out["sharded_mesh1_updates_per_s"] = round(1.0 / per, 1)
+    out["sharded_mesh1_eager_updates_per_s"] = round(1.0 / per_eager, 1)
     out["sharded_mesh1_overhead_vs_B1"] = round(out["B1_updates_per_s"] / (1.0 / per), 3)
     out["backend"] = device.type
     out.update(card)

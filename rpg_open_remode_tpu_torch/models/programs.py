@@ -36,9 +36,14 @@ inside the program. Here:
     reads them. A capture records the kernel launches its wrappers would
     make (``kernels.recording``) and each replay adds them to
     ``kernels.LAUNCHES``.
+  * A body that runs collectives (the mesh's programs,
+    ``parallel/programs.py``) captures as one graph per segment between its
+    exchange points (``parallel/collectives.Exchange``); a replay runs the
+    exchanges between the segments on the host. A body without a collective
+    is one graph and one replay.
   * On the CPU a call runs the body: the same function and the same
-    copies, nothing captured. There is no fallback: a failed capture or
-    replay raises.
+    copies (the exchange points' static buffers too), nothing captured.
+    There is no fallback: a failed capture, replay or exchange raises.
 
 The functional ``update_step``, ``update_chunk`` and
 ``_set_reference_propagated`` of ``models/depthmap.py`` stay eager: they
@@ -83,38 +88,98 @@ def stats_of(packed: torch.Tensor) -> dict:
 
 
 class Program:
-    """``body()`` captured as a CUDA graph at its first call on the card
+    """``body()`` captured as CUDA graphs at its first call on the card
     (after an eager warm-up that is the call's result) and replayed after;
-    on the CPU every call runs ``body()``."""
+    on the CPU every call runs ``body()``.
+
+    A body that runs collectives (the mesh's programs) meets exchange
+    points (``parallel/collectives.Exchange``): the warm-up creates one per
+    collective, with its static buffers, and the capture ends a segment at
+    each, so the body captures as one graph per segment. A replay runs the
+    segments with each exchange between them, on the host. A body with no
+    collective is one graph and one replay."""
 
     def __init__(self, body, device: torch.device, pool, label: str):
         self.body = body
         self.device = device
         self.pool = pool
         self.label = label
-        self.graph = None
+        self.graphs: list = []        # one per segment, once captured
+        self.exchanges: list = []     # the exchange points between them, in order
         self.launches: dict | None = None   # kernel launches of one replay
         self.capture_s: float | None = None  # host seconds of the capture
         self.captured_bytes: int | None = None  # reserved memory it added
         self.replays = 0
+        self._capturing = None        # the segment's graph while capturing
+        self._met = 0                 # exchange points met in this run of the body
 
     def __call__(self) -> None:
         if self.device.type != "cuda":
-            self.body()
-        elif self.graph is None:
+            self._run(capture=False)
+        elif not self.graphs:
             self._warm_up_and_capture()
         else:
-            self.graph.replay()
+            for k, graph in enumerate(self.graphs):
+                graph.replay()
+                if k < len(self.exchanges):
+                    self.exchanges[k].run()
             kernels.add_launches(self.launches)
             self.replays += 1
+
+    def exchange_sequence(self) -> list[tuple]:
+        """(collective, mesh axis) of each exchange point, in order."""
+        return [ex.signature[:2] for ex in self.exchanges]
+
+    # -- exchange points (called by parallel/collectives) ----------------------
+
+    def exchange_point(self, signature, make):
+        """The next exchange point of this run of the body: made by
+        ``make()`` on the first run, then held to its ``signature``."""
+        i = self._met
+        self._met += 1
+        if i == len(self.exchanges):
+            if self._capturing is not None:
+                raise RuntimeError(f"{self.label}: the capture met an exchange point "
+                                   "the warm-up did not")
+            self.exchanges.append(make())
+        point = self.exchanges[i]
+        if point.signature != signature:
+            raise RuntimeError(f"{self.label}: exchange point {i} is {signature}, "
+                               f"was {point.signature}")
+        return point
+
+    def exchange_boundary(self, point) -> None:
+        """While capturing: end this segment and begin the next. Otherwise:
+        run the exchange."""
+        if self._capturing is None:
+            point.run()
+            return
+        self._capturing.capture_end()
+        self.graphs.append(self._capturing)
+        self._begin_segment()
+
+    def _begin_segment(self) -> None:
+        self._capturing = torch.cuda.CUDAGraph()
+        self._capturing.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+
+    def _run(self, capture: bool) -> None:
+        from rpg_open_remode_tpu_torch.parallel import collectives
+
+        self._met = 0
+        with collectives.exchange_points(self):
+            if capture:
+                self._begin_segment()
+            self.body()
+        if self._met != len(self.exchanges):
+            raise RuntimeError(f"{self.label}: {self._met} exchange points, the warm-up "
+                               f"met {len(self.exchanges)}")
 
     def _warm_up_and_capture(self) -> None:
         current = torch.cuda.current_stream(self.device)
         side = _capture_stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            self.body()
-            graph = torch.cuda.CUDAGraph()
+            self._run(capture=False)
             # garbage that owns a graph (a dropped engine) must not be
             # collected inside the capture: destroying a graph there
             # invalidates it
@@ -125,21 +190,25 @@ class Program:
             t0 = time.perf_counter()
             try:
                 with kernels.recording() as launches:
-                    graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
                     try:
-                        self.body()
+                        self._run(capture=True)
                     except BaseException:
-                        with contextlib.suppress(Exception):
-                            graph.capture_end()
+                        if self._capturing is not None:
+                            with contextlib.suppress(Exception):
+                                self._capturing.capture_end()
+                        self.graphs = []
                         raise
+                    finally:
+                        graph, self._capturing = self._capturing, None
                     graph.capture_end()
+                    self.graphs.append(graph)
             finally:
                 if gc_on:
                     gc.enable()
             self.capture_s = time.perf_counter() - t0
             self.captured_bytes = torch.cuda.memory_reserved(self.device) - reserved
         current.wait_stream(side)
-        self.graph, self.launches = graph, launches
+        self.launches = launches
 
 
 class Inputs:
@@ -167,7 +236,7 @@ class Inputs:
         dt = x.dtype if isinstance(x, torch.Tensor) else np.asarray(x).dtype
         return torch.uint8 if dt in (torch.uint8, np.uint8) else torch.float32
 
-    def _upload(self, dst: torch.Tensor, x) -> None:
+    def upload(self, dst: torch.Tensor, x) -> None:
         """Copy ``x`` (an array, or a tensor on any device) into ``dst`` in
         stream order, converting to its dtype, without a host sync."""
         if isinstance(x, torch.Tensor) and x.device.type != "cpu":
@@ -195,18 +264,18 @@ class Inputs:
     def load_image(self, img) -> torch.dtype:
         """The frame into its dtype's buffer; returns that dtype."""
         dt = self.dtype_of(img)
-        self._upload(self.images[dt], img)
+        self.upload(self.images[dt], img)
         return dt
 
     def load_pose(self, T) -> np.ndarray:
         """The pose into the pose buffer; returns its float32 host copy (a
         pose on the card is read back: once per call)."""
         host = _host_f32(T)
-        self._upload(self.pose, host if not isinstance(T, torch.Tensor) or T.is_cpu else T)
+        self.upload(self.pose, host if not isinstance(T, torch.Tensor) or T.is_cpu else T)
         return host
 
     def load_bounds(self, min_depth, max_depth) -> None:
-        self._upload(self.bounds, np.array([min_depth, max_depth], np.float32))
+        self.upload(self.bounds, np.array([min_depth, max_depth], np.float32))
 
     def load_chunk(self, imgs, Ts):
         """K frames and poses: ``(images [K, H, W] on the device, their
@@ -221,12 +290,12 @@ class Inputs:
             d_imgs = imgs
         else:
             d_imgs = self._chunk_buffer("imgs", (k, self.height, self.width), dt)
-            self._upload(d_imgs, imgs)
+            self.upload(d_imgs, imgs)
         if isinstance(Ts, torch.Tensor) and Ts.device.type == self.device.type:
             d_Ts = Ts.to(torch.float32)
         else:
             d_Ts = self._chunk_buffer("poses", (k, 3, 4), torch.float32)
-            self._upload(d_Ts, host_Ts)
+            self.upload(d_Ts, host_Ts)
         return d_imgs, dt, d_Ts, host_Ts
 
     def _chunk_buffer(self, name, shape, dtype) -> torch.Tensor:
@@ -391,12 +460,17 @@ class Programs:
         return clone(self.state)
 
     def pool_bytes(self) -> int:
-        """Device memory held by this engine's graph pool (its segments in
-        the caching allocator); 0 on the CPU."""
-        if self.pool is None:
-            return 0
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) == tuple(self.pool))
+        """Device memory held by this engine's graph pool; 0 on the CPU."""
+        return pool_bytes(self.pool)
 
     def captures(self) -> list[Program]:
-        return [p for p in self.cache.values() if p.graph is not None]
+        return [p for p in self.cache.values() if p.graphs]
+
+
+def pool_bytes(pool) -> int:
+    """Device memory held by graph pool ``pool`` (its segments in the
+    caching allocator); 0 for None (the CPU)."""
+    if pool is None:
+        return 0
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))

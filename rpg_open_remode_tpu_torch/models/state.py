@@ -121,12 +121,16 @@ def copy_into(dst: SeedState, src: SeedState) -> None:
             d.copy_(s)
 
 
+def clone_scene(scene: SceneParams) -> SceneParams:
+    """A copy of ``scene`` in fresh device memory."""
+    return SceneParams(**{f.name: getattr(scene, f.name).clone()
+                          for f in dataclasses.fields(SceneParams)})
+
+
 def clone(state: SeedState) -> SeedState:
     """A copy of ``state`` in fresh device memory, which nothing that
     writes ``state`` later changes."""
-    scene = SceneParams(**{f.name: getattr(state.scene, f.name).clone()
-                           for f in dataclasses.fields(SceneParams)})
-    return SeedState(scene=scene, **{
+    return SeedState(scene=clone_scene(state.scene), **{
         f.name: getattr(state, f.name).clone()
         for f in dataclasses.fields(SeedState) if f.name != "scene"})
 

@@ -15,6 +15,7 @@ from rpg_open_remode_tpu_torch.parallel.halo import exchange_halo_1d, exchange_h
 from rpg_open_remode_tpu_torch.parallel.launch import RankGroup, run_ranks
 from rpg_open_remode_tpu_torch.parallel.mesh import Mesh, make_mesh
 from rpg_open_remode_tpu_torch.parallel.node import ShardedDepthmapNode
+from rpg_open_remode_tpu_torch.parallel.programs import ShardedPrograms
 from rpg_open_remode_tpu_torch.parallel.sharded import (
     SHARDED_PACKED_KEYS,
     build_sharded_denoise,
@@ -22,6 +23,7 @@ from rpg_open_remode_tpu_torch.parallel.sharded import (
     build_sharded_update,
     join_state_numpy,
     shard_state,
+    sharded_regime,
     split_state_numpy,
 )
 
@@ -31,5 +33,5 @@ __all__ = [
     "SHARDED_PACKED_KEYS", "ShardedDepthmapNode", "initialize_distributed",
     "make_distributed_mesh", "replicate_frame", "shard_local_keyframes", "local_block",
     "local_stats", "gather_kf_slot", "split_state_numpy", "join_state_numpy", "RankGroup",
-    "run_ranks",
+    "run_ranks", "ShardedPrograms", "sharded_regime",
 ]

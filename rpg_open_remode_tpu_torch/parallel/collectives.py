@@ -15,14 +15,31 @@ gloo is given host tensors: a CUDA tensor is copied to pinned host memory
 before the collective and the result back to the card after it. Those
 copies are explicit and counted in ``mesh.staged``; the compute stays on the
 card. A group of one rank is no collective at all.
+
+Inside a compiled program (``models/programs.Program``, which the mesh's
+programs in ``parallel/programs.py`` build on) each collective is an
+exchange point between two graph segments, never captured: the program's
+first call creates one ``Exchange`` per collective it meets, with static
+send and receive buffers (pinned host memory where gloo stages a CUDA
+tensor, else on the rank's device). Each call then copies the input into
+the send buffer, ends the segment (while capturing) or runs the collective
+on the static buffers (the host waits for the copy first), and copies the
+receive buffer into the tensor it returns at the head of the next segment.
+A replay runs the segments with each ``Exchange.run`` between them and
+adds its staged copies to ``mesh.staged`` as the eager call would.
+Outside a program the collectives run as described above.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.distributed as dist
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+_program = threading.local()   # .current: the program this thread is running, or None
 
 
 def backend_for(device_type: str, local_ranks: int) -> str:
@@ -62,9 +79,83 @@ def from_wire(mesh, t: torch.Tensor) -> torch.Tensor:
     return t.to(mesh.device)
 
 
-def _empty_wire(mesh, like: torch.Tensor) -> torch.Tensor:
-    dev = "cpu" if _staging(mesh, like) else like.device
-    return torch.empty(like.shape, dtype=like.dtype, device=dev)
+@contextlib.contextmanager
+def exchange_points(program):
+    """Route this thread's collectives through ``program``'s exchange points
+    (``program.exchange_point(signature, make)`` returns the point;
+    ``program.exchange_boundary(point)`` ends a segment or runs it)."""
+    saved = getattr(_program, "current", None)
+    _program.current = program
+    try:
+        yield
+    finally:
+        _program.current = saved
+
+
+class Exchange:
+    """One exchange point: a collective on static buffers. ``call(send,
+    recv)`` runs it on the buffer lists; ``recv_likes`` None means in place
+    (the receive buffers are the send buffers)."""
+
+    def __init__(self, mesh, signature, sends, recv_likes, call):
+        self.mesh = mesh
+        self.signature = signature
+        self.call = call
+        stage = mesh.backend == "gloo" and mesh.device.type == "cuda"
+
+        def static(shape, dtype):
+            if stage:
+                return torch.empty(shape, dtype=dtype, pin_memory=True)
+            return torch.empty(shape, dtype=dtype, device=mesh.device)
+
+        self.send = [static(t.shape, t.dtype) for t in sends]
+        self.recv = self.send if recv_likes is None else [static(*like) for like in recv_likes]
+        wire = self.send + self.recv
+        # what the eager call stages: each input out, each result back
+        self.staged = (len(wire) if stage else 0,
+                       sum(t.numel() * t.element_size() for t in wire) if stage else 0)
+        self._event = torch.cuda.Event() if stage else None
+
+    def stage_in(self, tensors) -> None:
+        """Copy the inputs into the send buffers (captured in a program)."""
+        for buf, t in zip(self.send, tensors):
+            buf.copy_(t, non_blocking=True)
+
+    def run(self) -> None:
+        """The collective on the static buffers, after the copies into them
+        that the current stream has queued."""
+        if self._event is not None:
+            self._event.record(torch.cuda.current_stream(self.mesh.device))
+            self._event.synchronize()
+        self.call(self.send, self.recv)
+        self.mesh.staged["copies"] += self.staged[0]
+        self.mesh.staged["bytes"] += self.staged[1]
+
+    def stage_out(self) -> list[torch.Tensor]:
+        """The received tensors on the rank's device (captured in a
+        program: the head of the next segment)."""
+        return [torch.empty(r.shape, dtype=r.dtype, device=self.mesh.device).copy_(
+            r, non_blocking=True) for r in self.recv]
+
+
+def _collect(mesh, kind: str, axis: str, sends: list, recv_likes, call) -> list:
+    """Run collective ``call(send_wires, recv_wires)`` on ``sends``: eagerly,
+    or through the exchange point of the program this thread runs. Returns
+    the received tensors on the rank's device."""
+    program = getattr(_program, "current", None)
+    if program is None:
+        wires = [to_wire(mesh, t) for t in sends]
+        recv = wires if recv_likes is None else [
+            torch.empty(shape, dtype=dtype, device=wires[0].device) for shape, dtype in recv_likes]
+        call(wires, recv)
+        return [from_wire(mesh, t) for t in recv]
+    signature = (kind, axis, tuple((tuple(t.shape), t.dtype) for t in sends),
+                 None if recv_likes is None else tuple(recv_likes))
+    point = program.exchange_point(
+        signature, lambda: Exchange(mesh, signature, sends, recv_likes, call))
+    point.stage_in(sends)
+    program.exchange_boundary(point)
+    return point.stage_out()
 
 
 def all_reduce(mesh, x: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
@@ -72,19 +163,25 @@ def all_reduce(mesh, x: torch.Tensor, axis: str, op: str = "sum") -> torch.Tenso
     ("world": every rank)."""
     if (mesh.size == 1) if axis == "world" else (axis not in mesh.groups):
         return x
-    w = to_wire(mesh, x)
-    dist.all_reduce(w, op=_OPS[op], group=None if axis == "world" else mesh.groups[axis])
-    return from_wire(mesh, w)
+    group = None if axis == "world" else mesh.groups[axis]
+
+    def call(send, recv):
+        dist.all_reduce(send[0], op=_OPS[op], group=group)
+
+    return _collect(mesh, "all_reduce", axis, [x], None, call)[0]
 
 
 def all_gather(mesh, x: torch.Tensor, axis: str) -> list[torch.Tensor]:
     """Every rank's ``x`` along ``axis``, in axis order."""
     if axis not in mesh.groups:
         return [x]
-    w = to_wire(mesh, x)
-    out = [torch.empty_like(w) for _ in range(mesh.axis_size(axis))]
-    dist.all_gather(out, w, group=mesh.groups[axis])
-    return [from_wire(mesh, t) for t in out]
+    group = mesh.groups[axis]
+
+    def call(send, recv):
+        dist.all_gather(recv, send[0], group=group)
+
+    like = (tuple(x.shape), x.dtype)
+    return _collect(mesh, "all_gather", axis, [x], [like] * mesh.axis_size(axis), call)
 
 
 def gather(mesh, x: torch.Tensor, axis: str) -> list[torch.Tensor] | None:
@@ -92,12 +189,16 @@ def gather(mesh, x: torch.Tensor, axis: str) -> list[torch.Tensor] | None:
     rank; None on the others."""
     if axis not in mesh.groups:
         return [x]
-    w = to_wire(mesh, x)
+    group = mesh.groups[axis]
     ranks = mesh.axis_ranks(axis)
     lead = mesh.rank == ranks[0]
-    out = [torch.empty_like(w) for _ in ranks] if lead else None
-    dist.gather(w, out, dst=ranks[0], group=mesh.groups[axis])
-    return [from_wire(mesh, t) for t in out] if lead else None
+
+    def call(send, recv):
+        dist.gather(send[0], recv if lead else None, dst=ranks[0], group=group)
+
+    likes = [(tuple(x.shape), x.dtype)] * len(ranks) if lead else []
+    out = _collect(mesh, "gather", axis, [x], likes, call)
+    return out if lead else None
 
 
 def permute(mesh, axis: str, sends: dict, recvs: dict) -> dict:
@@ -108,9 +209,14 @@ def permute(mesh, axis: str, sends: dict, recvs: dict) -> dict:
     if not sends and not recvs:
         return {}
     group = mesh.groups[axis]
-    ops = [dist.P2POp(dist.isend, to_wire(mesh, t), peer, group) for peer, t in sends.items()]
-    got = {peer: _empty_wire(mesh, like) for peer, like in recvs.items()}
-    ops += [dist.P2POp(dist.irecv, t, peer, group) for peer, t in got.items()]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return {peer: from_wire(mesh, t) for peer, t in got.items()}
+    to, frm = list(sends), list(recvs)
+
+    def call(send, recv):
+        ops = [dist.P2POp(dist.isend, t, peer, group) for peer, t in zip(to, send)]
+        ops += [dist.P2POp(dist.irecv, t, peer, group) for peer, t in zip(frm, recv)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+    got = _collect(mesh, "permute", axis, list(sends.values()),
+                   [(tuple(t.shape), t.dtype) for t in recvs.values()], call)
+    return dict(zip(frm, got))

@@ -13,28 +13,29 @@ event at dispatch, ``models/node._fetch``), so WHICH values it sees depends
 only on frame counts. So every rank issues the same collectives in the same
 order.
 
-Finalizing a slot: its kf row's ranks run the sharded TV-L1 on the
-pre-reseed snapshot, then gather the slot's tiles and its denoised tiles to
-the row's spatial leader, on the loop's thread and in slot order, so the
-gathers never interleave with a step's collectives. Only the leader's
-worker thread assembles the ``KeyframeResult`` and calls ``on_keyframe``.
-Keyframes are numbered per host in the order the policy finalizes them
-(``KeyframeResult.index``), which every rank knows.
+Every step, reseed and TV-L1 is a replay of the mesh's compiled programs
+(``parallel/programs.ShardedPrograms``), which hold the local slots in
+fixed buffers: a reseed overwrites its slot. Finalizing a slot: its kf
+row's ranks run the sharded TV-L1 on the slot's buffers, then gather the
+slot's tiles and its denoised tiles to the row's spatial leader, on the
+loop's thread and in slot order (so the gathers never interleave with a
+step's collectives), all in stream order before the slot's reseed replays.
+Only the leader's worker thread assembles the ``KeyframeResult`` (from the
+gathered copy, the keyframe pose and scene cloned before the reseed) and
+calls ``on_keyframe``. Keyframes are numbered per host in the order the
+policy finalizes them (``KeyframeResult.index``), which every rank knows.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from rpg_open_remode_tpu_torch.config import ConvergenceState, RemodeConfig
 from rpg_open_remode_tpu_torch.models.node import KeyframeResult, LifecycleNode, _fetch
-from rpg_open_remode_tpu_torch.models.state import SceneParams, SeedState, empty_state
+from rpg_open_remode_tpu_torch.models.state import SeedState, clone_scene
 from rpg_open_remode_tpu_torch.parallel.distributed import gather_kf_slot
-from rpg_open_remode_tpu_torch.parallel.sharded import (
-    SHARDED_PACKED_KEYS, build_sharded_denoise, build_sharded_reseed, build_sharded_update,
-    tile_state,
-)
+from rpg_open_remode_tpu_torch.parallel.programs import ShardedPrograms
+from rpg_open_remode_tpu_torch.parallel.sharded import SHARDED_PACKED_KEYS
 from rpg_open_remode_tpu_torch.utils import se3
 from rpg_open_remode_tpu_torch.utils.camera import PinholeCamera
 
@@ -70,11 +71,8 @@ class ShardedDepthmapNode(LifecycleNode):
         self.policy_stride = max(int(policy_stride), 1)
         self.stagger = max(int(stagger), 1)
 
-        self.states = [tile_state(empty_state(height, width, self.cam), mesh)] * self.n_local
-        self._step = build_sharded_update(mesh, self.cam, self.cfg, height, width)
-        self._reseed = build_sharded_reseed(mesh, self.cam, self.cfg, height, width)
-        self._denoise = build_sharded_denoise(mesh, self.cfg, height, width,
-                                              iterations=self.cfg.denoise_iters)
+        self.programs = ShardedPrograms(mesh, height, width, self.cam, (fx, fy), self.cfg,
+                                        self.n)
         self._f_ref = self.cam.bearing_grid(height, width) if mesh.axis_index("sp") == 0 else None
 
         self.num_msgs = 0
@@ -99,21 +97,20 @@ class ShardedDepthmapNode(LifecycleNode):
     def process_frame(self, image, T_curr_world, min_depth, max_depth) -> dict:
         """Feed one frame with its scene depth bounds. Returns the newest
         per-slot metrics the lagged stats make known without a wait."""
-        dev = self.device
-        image = torch.as_tensor(np.asarray(image)).to(dev)
-        T_curr_world = torch.as_tensor(np.asarray(T_curr_world, np.float32)).to(dev)
+        T_host = self.programs.load_frame(image, T_curr_world)
         self._bounds = (float(min_depth), float(max_depth))
         if self.num_msgs == 0:
             # the first frame fills the ring; the stagger below diversifies it
-            scene = SceneParams.create(*self._bounds, self.cfg, device=dev)
             for slot in range(self.n):
-                self.states = self._reseed(self.states, slot, image, se3.inv(T_curr_world), scene)
+                self._reseed_program(slot)
             self.num_msgs = 1
             return {"event": "reference_set"}
 
         self.num_msgs += 1
-        self._last_frame = (image, T_curr_world)
-        self.states, stats = self._step(self.states, image, T_curr_world)
+        self.programs.step(T_host)
+        n = self.num_msgs - 1
+        # the static packed output, copied right after the replay that wrote it
+        fetched = _fetch(self.programs.packed) if n % self.policy_stride == 0 else None
         for s in range(self.n):
             self._n_updates[s] += 1
         # snapshot before any reseed below: the stats belong to the
@@ -121,7 +118,6 @@ class ShardedDepthmapNode(LifecycleNode):
         gens_at_dispatch = tuple(self._generation)
         n_upds_at_dispatch = tuple(self._n_updates)
 
-        n = self.num_msgs - 1
         if n % self.stagger == 0:
             slot = n // self.stagger
             if 0 < slot < self.n and not self._forced_reseed_done[slot]:
@@ -129,10 +125,9 @@ class ShardedDepthmapNode(LifecycleNode):
                 self._forced_reseed_done[slot] = True
 
         out = {"event": "updated"}
-        if n % self.policy_stride == 0:
-            host, event = _fetch(stats["packed"])
+        if fetched is not None:
             self._pending_stats.append(
-                (self.num_msgs, gens_at_dispatch, n_upds_at_dispatch, host, event))
+                (self.num_msgs, gens_at_dispatch, n_upds_at_dispatch, *fetched))
             while len(self._pending_stats) > 1:
                 out = self._resolve_oldest()
         return out
@@ -162,12 +157,12 @@ class ShardedDepthmapNode(LifecycleNode):
     # -- slot lifecycle --------------------------------------------------------
 
     def _finalize_slots(self, slots, n_upds, frame_no: int) -> None:
-        # one pre-reseed snapshot serves every slot finalizing on this packet
-        snapshot = self.states
+        # the finalizing slots are denoised from their buffers before any
+        # of them is reseeded (the stream orders them so)
         mine = [s for s in slots if self._local(s) is not None]
         den = {}
         if mine:
-            tiles = self._denoise(snapshot, self.cfg.denoise_lambda, [self._local(s) for s in mine])
+            tiles = self.programs.denoise([self._local(s) for s in mine], self.cfg.denoise_lambda)
             den = dict(zip(mine, tiles))
         for slot in slots:
             leader = (slot // self.n_local) * self.mesh.axis_size("sp")
@@ -176,27 +171,35 @@ class ShardedDepthmapNode(LifecycleNode):
             self._exports_by_host[host] += 1
             self.switches.append((frame_no, slot))
             if slot in mine:
-                st = snapshot[self._local(slot)]
+                st = self.programs.states[self._local(slot)]
                 fields = [getattr(st, f).float() for f in _GATHERED] + [den[slot]]
                 full = gather_kf_slot(self.mesh, torch.stack(fields))
                 if full is not None:
-                    self._submit(self._export, st, full, n_upds[slot], index)
+                    # copies: the worker reads them after the reseed below
+                    # overwrote the slot's buffers
+                    self._submit(self._export, st.T_world_ref.clone(), clone_scene(st.scene),
+                                 full, n_upds[slot], index)
             self._reseed_slot(slot)
 
+    def _reseed_program(self, slot: int) -> None:
+        """The reseed of ``slot`` from the loaded frame, at the inverse of
+        its pose, and the frame's bounds."""
+        self.programs.load_bounds(*self._bounds)
+        self.programs.reseed(slot, se3.inv(self.programs.inputs.pose))
+
     def _reseed_slot(self, slot: int) -> None:
-        img, T = self._last_frame
-        scene = SceneParams.create(*self._bounds, self.cfg, device=self.device)
-        self.states = self._reseed(self.states, slot, img, se3.inv(T), scene)
+        self._reseed_program(slot)
         self._generation[slot] += 1
         self._n_updates[slot] = 0
 
-    def _export(self, st: SeedState, full: torch.Tensor, n_updates: int, index: int) -> None:
+    def _export(self, T_world_ref, scene, full: torch.Tensor, n_updates: int,
+                index: int) -> None:
         """On the leader's worker thread: the gathered keyframe as a
         ``KeyframeResult`` (``full``: the ``_GATHERED`` fields, then the
         denoised depth, each ``[H, W]``), kept and handed over."""
         leaves = dict(zip(_GATHERED, full))
         leaves["conv"] = leaves["conv"].to(torch.int32)
-        state = SeedState(f_ref=self._f_ref, T_world_ref=st.T_world_ref, scene=st.scene, **leaves)
+        state = SeedState(f_ref=self._f_ref, T_world_ref=T_world_ref, scene=scene, **leaves)
         denoised = full[len(_GATHERED)]
         # exact converged% at snapshot time (the policy's lags a stride)
         exact_pct = 100.0 * float((state.conv == int(ConvergenceState.CONVERGED)).float().mean())

@@ -10,8 +10,9 @@ rectification warps and the sweep are global, so each rank
      rank ``ty_idx * n_tx + tx_idx``, on a slab with a 32-row halo on each
      side (clamped at the grid's edges; trimmed after the sweep): the band
      warps (the fused CUDA warp kernel), the band's own coarse-pass gate (no
-     collective, so bands may differ) and the sweep (the CUDA kernel, on
-     the slab's shape),
+     collective, so bands may differ; a 0-d bool on the device that the
+     coarse sweep reads, so nothing is read on the host) and the sweep (the
+     CUDA kernel, on the slab's shape),
   3. gathers the three result maps and back-warps its own reference tile.
 
 The warps take the slab's and the tile's origin as their output window, so
@@ -156,13 +157,15 @@ def match_rectified_sharded(state_tile, curr_img: torch.Tensor, T_curr_ref: torc
     ref_img_r = ref_r[0].contiguous()
 
     if cfg.coarse_to_fine:
-        # the band's own gate: band-local compute, no collective
+        # the band's own gate (band-local, no collective), a 0-d bool that
+        # stays on the device: the coarse sweep returns at once when it is
+        # off, and the bands are kept as they were (the JAX lax.cond)
         extent = disp_hi - disp_lo
         wide_n = torch.isfinite(extent) & (extent > 2.0 * cfg.coarse_refine_radius + 2.0)
-        if bool(wide_n.float().mean() > 0.15):
-            coarse_args = rect_match.coarse_sweep_args(
-                curr_r, ref_img_r, valid_r, xlim_ext, disp_lo, disp_hi, cfg)
-            disp_lo, disp_hi = rect_match._coarse_narrow(coarse_args, disp_lo, disp_hi, cfg)
+        gate = wide_n.float().mean() > 0.15
+        coarse_args = rect_match.coarse_sweep_args(
+            curr_r, ref_img_r, valid_r, xlim_ext, disp_lo, disp_hi, cfg)
+        disp_lo, disp_hi = rect_match._coarse_narrow(coarse_args, disp_lo, disp_hi, cfg, gate)
 
     disp_b, ncc_b, found_b = rect_match.disparity_sweep(
         curr_r.contiguous(), xlim_ext.contiguous(), ref_img_r, valid_r.contiguous(),

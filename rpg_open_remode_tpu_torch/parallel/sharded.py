@@ -14,11 +14,22 @@ Layout, as the JAX package shards it:
 
 The JAX ``lax.scan`` over the local keyframes is a loop over the local
 slots, in the same order on every rank. Both matcher branches run
-collectives, so the regime predicate is reduced over ``kf`` (max) before
-any rank branches: a degenerate keyframe anywhere sends every keyframe of
-that local index through the tile plane sweep for the frame. The sharded
-step sends near-zero baseline there too, where the single-device matcher
-takes the pure-rotation branch (``ops/rect_match.match``).
+collectives, so every rank must take the same one: a degenerate keyframe
+anywhere sends every keyframe of that local index through the tile plane
+sweep for the frame (the JAX ``lax.pmax`` over ``kf``, then ``lax.cond``).
+The sharded step sends near-zero baseline there too, where the
+single-device matcher takes the pure-rotation branch
+(``ops/rect_match.match``). The regime is chosen on the host
+(``sharded_regime``) from host copies of every global slot's keyframe pose
+and mean depth, which every rank holds alike, so no collective decides it
+and every rank runs the same exchanges; the step takes it as an argument.
+Given none, the step decides on the device (``_degenerate``, an
+``all_reduce`` max over ``kf`` and a host read): the oracle the host choice
+is held against.
+
+These functions run eagerly. ``parallel/programs.py`` captures them as the
+mesh's compiled programs (the JAX ``jax.jit`` of each ``shard_map``), with
+each collective an exchange point between graph segments.
 """
 
 from __future__ import annotations
@@ -33,7 +44,9 @@ from rpg_open_remode_tpu_torch.config import ConvergenceState, RemodeConfig
 from rpg_open_remode_tpu_torch.models.depthmap import prep_image
 from rpg_open_remode_tpu_torch.models.state import SceneParams, SeedState, states_from_numpy
 from rpg_open_remode_tpu_torch.ops import denoise as denoise_ops
-from rpg_open_remode_tpu_torch.ops import epipolar, propagate, reduction, seed_check, seed_update
+from rpg_open_remode_tpu_torch.ops import (
+    epipolar, propagate, rect_match, reduction, seed_check, seed_update,
+)
 from rpg_open_remode_tpu_torch.ops.seed_init import template_stats
 from rpg_open_remode_tpu_torch.parallel import collectives
 from rpg_open_remode_tpu_torch.parallel.halo import exchange_halo_2d
@@ -135,13 +148,36 @@ def _degenerate(T_curr_ref, scene, cam, cfg: RemodeConfig, height: int, width: i
     return degenerate.to(torch.int32)
 
 
+def sharded_regime(T_curr_world, slots, cam, cfg: RemodeConfig, height: int, width: int,
+                   kf: int = 1):
+    """The sharded step's regime from host copies: for each local slot
+    index, whether the tile plane sweep runs (True) or the rectified bands
+    (False); None where the config has no choice (``match_mode`` other than
+    "rect", or no ``zero_baseline_fallback``). ``slots`` holds
+    ``(T_world_ref [3, 4], avg_depth)`` of every global slot in slot order,
+    ``cam`` is ``(fx, fy)``, ``kf`` the kf axis size. ``_degenerate`` of each
+    slot, in numpy float32 in the device's order of operations
+    (``ops/rect_match.regime_index``, whose two degenerate branches are
+    its predicate), then the max over the kf rows that share a local
+    index: the ``kf`` max of the device path without a collective."""
+    if not (cfg.match_mode == "rect" and cfg.zero_baseline_fallback):
+        return None
+    fx, fy = cam
+    deg = [rect_match.regime_index(T_curr_world, T_ref, avg, fx, fy, height, width, cfg)
+           != rect_match.RECTIFIED for T_ref, avg in slots]
+    n_local = len(deg) // kf
+    return tuple(any(deg[k * n_local + i] for k in range(kf)) for i in range(n_local))
+
+
 def build_sharded_update(mesh, cam: PinholeCamera, cfg: RemodeConfig, height: int, width: int):
-    """``step(states, curr_img, T_curr_world) -> (states', stats)``: one
-    engine step of this rank's local slots (``states``, tiles), every rank
-    calling it with the same frame. ``stats`` holds each key of
-    ``SHARDED_PACKED_KEYS`` for the local slots (counts over the whole
-    keyframe) and ``packed``, the ``[KF, 6]`` matrix of every slot, equal on
-    every rank."""
+    """``step(states, curr_img, T_curr_world, regime=None) -> (states',
+    stats)``: one engine step of this rank's local slots (``states``,
+    tiles), every rank calling it with the same frame, already on the
+    rank's device (``[H, W]`` uint8 or float, ``[3, 4]`` float32).
+    ``regime`` is ``sharded_regime``'s choice; None decides on the device.
+    ``stats`` holds each key of ``SHARDED_PACKED_KEYS`` for the local slots
+    (counts over the whole keyframe) and ``packed``, the ``[KF, 6]`` matrix
+    of every slot, equal on every rank."""
     y0, x0, th, tw = mesh.tile(height, width)
     p = cfg.patch_side // 2
     dev = mesh.device
@@ -164,16 +200,18 @@ def build_sharded_update(mesh, cam: PinholeCamera, cfg: RemodeConfig, height: in
         return match_rectified_sharded(st, curr_img, T_curr_ref, cam, cfg, height, width,
                                        (y0, x0), mesh)
 
-    def per_kf(st: SeedState, curr_img, T_curr_world):
+    def per_kf(st: SeedState, curr_img, T_curr_world, degenerate):
         T_curr_ref = se3.compose(T_curr_world, st.T_world_ref)
         conv1 = seed_check.classify_seeds(st.mu, st.sigma_sq, st.a, st.b, st.scene.epsilon,
                                           border, cfg)
         st = dataclasses.replace(st, conv=conv1)
         if cfg.match_mode == "rect" and cfg.zero_baseline_fallback:
-            # both branches run collectives: the max over kf makes the
-            # choice global before any rank branches
-            deg = _degenerate(T_curr_ref, st.scene, cam, cfg, height, width)
-            fn = sweep_fn if bool(collectives.all_reduce(mesh, deg, "kf", "max") > 0) else rect_fn
+            if degenerate is None:
+                # both branches run collectives: the max over kf makes the
+                # choice global before any rank branches
+                deg = _degenerate(T_curr_ref, st.scene, cam, cfg, height, width)
+                degenerate = bool(collectives.all_reduce(mesh, deg, "kf", "max") > 0)
+            fn = sweep_fn if degenerate else rect_fn
         else:
             fn = rect_fn if cfg.match_mode == "rect" else sweep_fn
         res = fn(st, curr_img, T_curr_ref)
@@ -184,10 +222,10 @@ def build_sharded_update(mesh, cam: PinholeCamera, cfg: RemodeConfig, height: in
         return new_st, torch.stack([counts[k].float() for k in SHARDED_PACKED_KEYS[:5]]), \
             torch.linalg.norm(se3.translation(T_curr_ref))
 
-    def step(states, curr_img, T_curr_world):
-        curr_img = prep_image(torch.as_tensor(curr_img).to(dev))
-        T_curr_world = torch.as_tensor(T_curr_world, dtype=torch.float32).to(dev)
-        out = [per_kf(st, curr_img, T_curr_world) for st in states]
+    def step(states, curr_img, T_curr_world, regime=None):
+        curr_img = prep_image(curr_img)
+        regime = regime or (None,) * len(states)
+        out = [per_kf(st, curr_img, T_curr_world, deg) for st, deg in zip(states, regime)]
         n_local = len(states)
         first = mesh.axis_index("kf") * n_local
         # one [KF, 6] matrix summed over every rank: each tile adds its

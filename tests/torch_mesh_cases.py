@@ -1,8 +1,9 @@
 """Rank functions of the port's mesh tests (``tests/test_torch_parallel.py``,
-``test_torch_sharded.py``): each runs on every rank of a spawned
-``torch.distributed`` mesh (``rpg_open_remode_tpu_torch.parallel.run_ranks``,
-gloo, CPU) and returns numpy. Spawned ranks import this module by name, so
-it imports nothing of JAX."""
+``test_torch_sharded.py``, ``test_torch_sharded_programs.py``): each runs
+on every rank of a spawned ``torch.distributed`` mesh
+(``rpg_open_remode_tpu_torch.parallel.run_ranks``, gloo, CPU) and returns
+numpy. Spawned ranks import this module by name, so it imports nothing of
+JAX."""
 
 import dataclasses
 
@@ -13,11 +14,13 @@ from rpg_open_remode_tpu_torch.config import RemodeConfig
 from rpg_open_remode_tpu_torch.models.state import SceneParams, state_to_numpy
 from rpg_open_remode_tpu_torch.ops import epipolar
 from rpg_open_remode_tpu_torch.parallel import (
-    ShardedDepthmapNode, build_sharded_denoise, build_sharded_reseed, build_sharded_update,
-    collectives, exchange_halo_1d, exchange_halo_2d, make_distributed_mesh, make_mesh,
-    shard_state,
+    ShardedDepthmapNode, ShardedPrograms, build_sharded_denoise, build_sharded_reseed,
+    build_sharded_update, collectives, exchange_halo_1d, exchange_halo_2d,
+    make_distributed_mesh, make_mesh, shard_state, sharded_regime,
 )
 from rpg_open_remode_tpu_torch.parallel.distributed import local_block, local_stats
+from rpg_open_remode_tpu_torch.parallel.sharded import _degenerate
+from rpg_open_remode_tpu_torch.utils import se3
 from rpg_open_remode_tpu_torch.utils.camera import PinholeCamera
 
 
@@ -58,8 +61,10 @@ def collectives_suite(mesh, io, x):
 
 
 def _fed(mesh, x):
-    """``replicate_frame`` and ``shard_local_keyframes`` on a state whose
-    fields are ``x``: this rank's copy of the frame and its tiles."""
+    """``replicate_frame`` (also staged into a programs' static inputs) and
+    ``shard_local_keyframes`` on a state whose fields are ``x``: this rank's
+    copy of the frame and its tiles."""
+    from rpg_open_remode_tpu_torch.models.programs import Inputs
     from rpg_open_remode_tpu_torch.models.state import empty_state
     from rpg_open_remode_tpu_torch.parallel import replicate_frame, shard_local_keyframes
 
@@ -68,7 +73,10 @@ def _fed(mesh, x):
                                                                  cy=7.5))),
                                mu=torch.tensor(x), conv=torch.tensor(x > 0.5).int())
     tiles = shard_local_keyframes(mesh, [full], mesh.axis_size("kf"))
+    inputs = Inputs(h, w, mesh.device)
+    staged = replicate_frame(mesh, x, inputs)
     return dict(frame=replicate_frame(mesh, x).numpy(), mu=tiles[0].mu.numpy(),
+                staged=staged.numpy(), staged_is_input=staged is inputs.images[torch.float32],
                 conv=tiles[0].conv.numpy(), f_ref=tiles[0].f_ref.numpy(),
                 f_ref_full=full.f_ref.numpy())
 
@@ -98,7 +106,7 @@ def steps(mesh, io, arrays, cfg_kw, cam, frames):
     out = []
     for img, T in frames:
         sweeps[0] = 0
-        states, stats = step(shard_state(arrays, mesh), img, T)
+        states, stats = step(shard_state(arrays, mesh), torch.tensor(img), torch.tensor(T))
         out.append(dict(state=local_block(states), stats=local_stats(mesh, stats),
                         packed=stats["packed"].numpy(), sweeps=sweeps[0]))
     return out
@@ -141,3 +149,204 @@ def node_run(mesh, io, frames, cam, cfg_kw, n_keyframes, policy_stride, stagger)
     return dict(switches=node.switches, keyframes=[
         (k.index, state_to_numpy(k.state), k.denoised_depth, k.converged_percentage,
          k.n_updates) for k in node.keyframes])
+
+
+def _programs(mesh, arrays, cfg, cam):
+    """``ShardedPrograms`` of every slot of ``arrays``, loaded with it."""
+    h, w = arrays["mu"].shape[-2:]
+    progs = ShardedPrograms(mesh, h, w, _cam(mesh, cam), (cam["fx"], cam["fy"]), cfg,
+                            len(arrays["mu"]))
+    progs.load_numpy(arrays)
+    return progs
+
+
+def _sequences(progs) -> dict:
+    """Each cached program's exchange-point sequence, by its label."""
+    return {p.label: p.exchange_sequence() for p in progs.cache.values()}
+
+
+def programs_steps(mesh, io, arrays, cfg_kw, cam, frames):
+    """The programs path and the eager sharded step from ``arrays``, frame
+    after frame: per frame both paths' tiles and packed stats, the host
+    regime and the device's (``_degenerate`` of each local slot, the
+    ``kf`` max); at the end each program's exchange-point sequence."""
+    cfg = RemodeConfig(**cfg_kw)
+    h, w = arrays["mu"].shape[-2:]
+    step = build_sharded_update(mesh, _cam(mesh, cam), cfg, h, w)
+    progs = _programs(mesh, arrays, cfg, cam)
+    states = shard_state(arrays, mesh)
+    out = []
+    for img, T in frames:
+        T_dev = torch.tensor(T)
+        device_regime = tuple(
+            bool(collectives.all_reduce(mesh, _degenerate(
+                se3.compose(T_dev, st.T_world_ref), st.scene, progs.cam, cfg, h, w), "kf",
+                "max") > 0) for st in states)
+        host_regime = progs.regime(np.asarray(T, np.float32))
+        states, stats = step(states, torch.tensor(img), T_dev)
+        got = progs.update(img, T)
+        out.append(dict(eager=local_block(states), programs=local_block(progs.states),
+                        eager_packed=stats["packed"].numpy(), packed=got["packed"].numpy(),
+                        stats=local_stats(mesh, progs), host_regime=host_regime,
+                        device_regime=device_regime))
+    return dict(frames=out, sequences=_sequences(progs))
+
+
+def programs_reseed_denoise(mesh, io, arrays, cfg_kw, cam, slot, img, T_world_ref, bounds,
+                            lam):
+    """Global slot ``slot`` reseeded flat and propagated from ``arrays``, and
+    the TV-L1 of every local slot of ``arrays``, through the programs (each
+    called twice, the second a replay) and eagerly: this rank's tiles."""
+    cfg = RemodeConfig(**cfg_kw)
+    h, w = arrays["mu"].shape[-2:]
+    out = {}
+    for propagated in (False, True):
+        c = dataclasses.replace(cfg, propagate_depth=propagated)
+        fn = build_sharded_reseed(mesh, _cam(mesh, cam), c, h, w)
+        scene = SceneParams.create(*bounds, c, device=mesh.device)
+        want = local_block(fn(shard_state(arrays, mesh), slot, torch.tensor(img),
+                              torch.tensor(T_world_ref), scene))
+        progs = _programs(mesh, arrays, c, cam)
+        got = []
+        for _ in range(2):
+            progs.load_numpy(arrays)
+            progs.load_frame(img, np.eye(4, dtype=np.float32)[:3])
+            progs.load_bounds(*bounds)
+            progs.reseed(slot, T_world_ref)
+            got.append(local_block(progs.states))
+        key = "propagated" if propagated else "flat"
+        out[key] = dict(eager=want, programs=got, refs=progs.refs.numpy(),
+                        sequences=_sequences(progs))
+    den = build_sharded_denoise(mesh, cfg, h, w, iterations=cfg.denoise_iters)
+    slots = list(range(len(arrays["mu"]) // mesh.axis_size("kf")))
+    want = np.stack([t.numpy() for t in den(shard_state(arrays, mesh), lam, slots)])
+    progs = _programs(mesh, arrays, cfg, cam)
+    got = [np.stack([t.numpy() for t in progs.denoise(slots, lam)]) for _ in range(2)]
+    out["denoise"] = dict(eager=want, programs=got, sequences=_sequences(progs))
+    return out
+
+
+class EagerPrograms(ShardedPrograms):
+    """The node's programs as the eager functions they capture (the node as
+    it ran before its programs): a step, reseed or denoise makes new
+    tensors, and the regime is decided on the device."""
+
+    def step(self, T_host):
+        self.states, stats = self._step_fn(self.states, self.inputs.images[self.dtype],
+                                           self.inputs.pose)
+        self.packed = stats["packed"]
+
+    def load_bounds(self, min_depth, max_depth):
+        self._bounds = (min_depth, max_depth)
+
+    def reseed(self, slot, T_world_ref, propagated=None):
+        fn = build_sharded_reseed(self.mesh, self.cam, self.cfg, self.height, self.width)
+        scene = SceneParams.create(*self._bounds, self.cfg, device=self.device)
+        self.states = fn(self.states, slot, self.inputs.images[self.dtype], T_world_ref, scene)
+
+    def denoise(self, slots, lam):
+        return self._denoise_fn(self.states, lam, list(slots))
+
+
+def node_compare(mesh, io, frames, cam, cfg_kw, n_keyframes, policy_stride, stagger):
+    """``node_run`` through the programs and through ``EagerPrograms``, and
+    per export of the programs' run the keyframe pose and mean depth that
+    its slot holds after the reseed that followed it."""
+    out = {}
+    for eager in (False, True):
+        h, w = frames[0][0].shape
+        node = ShardedDepthmapNode(mesh, w, h, cam["fx"], cam["cx"], cam["fy"], cam["cy"],
+                                   n_keyframes=n_keyframes, cfg=RemodeConfig(**cfg_kw),
+                                   policy_stride=policy_stride, stagger=stagger)
+        if eager:
+            p = node.programs
+            node.programs = EagerPrograms(mesh, h, w, p.cam, p.cam_host, p.cfg, p.n)
+        after = []
+        seen = 0
+        for img, T, bounds in frames:
+            node.process_frame(img, T, *bounds)
+            while seen < len(node.switches):
+                slot = node.switches[seen][1]
+                local = node._local(slot)
+                if local is not None:
+                    st = node.programs.states[local]
+                    after.append((slot, st.T_world_ref.numpy().copy(),
+                                  float(st.scene.avg_depth)))
+                seen += 1
+        node.close()
+        out["eager" if eager else "programs"] = dict(
+            switches=node.switches, updates=list(node._n_updates), after=after,
+            keyframes=[(k.index, state_to_numpy(k.state), k.denoised_depth,
+                        k.converged_percentage, k.n_updates) for k in node.keyframes])
+    return out
+
+
+def regime_compare(mesh, io, arrays, cfg_kw, cam, poses):
+    """For each host pose: ``sharded_regime`` and the device's choice
+    (``_degenerate`` of each local slot, the ``kf`` max)."""
+    cfg = RemodeConfig(**cfg_kw)
+    h, w = arrays["mu"].shape[-2:]
+    c = _cam(mesh, cam)
+    states = shard_state(arrays, mesh)
+    slots = [(arrays["T_world_ref"][i], arrays["scene"]["avg_depth"][i])
+             for i in range(len(arrays["mu"]))]
+    out = []
+    for T in poses:
+        T_dev = torch.tensor(T)
+        dev = tuple(bool(collectives.all_reduce(mesh, _degenerate(
+            se3.compose(T_dev, st.T_world_ref), st.scene, c, cfg, h, w), "kf", "max") > 0)
+            for st in states)
+        host = sharded_regime(T, slots, (cam["fx"], cam["fy"]), cfg, h, w, mesh.axis_size("kf"))
+        out.append((host, dev))
+    return out
+
+
+def graphs_vs_eager(mesh, io, arrays, cfg_kw, cam, frames, single=False):
+    """On the rank's device: the programs path and the eager sharded step
+    from ``arrays``, frame after frame (the programs' first call warms up
+    and captures, the later ones replay): per frame both paths' tiles and
+    packed stats and what each added to the kernel launch counts and to
+    ``mesh.staged``; each program's graphs and exchange points; with
+    ``single`` also slot 0 through a single ``Depthmap`` from the same
+    start (a (1, 1, 1) mesh: the full grid)."""
+    from rpg_open_remode_tpu_torch import kernels
+    from rpg_open_remode_tpu_torch.models.depthmap import Depthmap
+    from rpg_open_remode_tpu_torch.models.state import state_from_numpy
+
+    cfg = RemodeConfig(**cfg_kw)
+    h, w = arrays["mu"].shape[-2:]
+    dev = mesh.device
+    step = build_sharded_update(mesh, _cam(mesh, cam), cfg, h, w)
+    progs = _programs(mesh, arrays, cfg, cam)
+    states = shard_state(arrays, mesh)
+    eng = None
+    if single:
+        eng = Depthmap(w, h, cam["fx"], cam["cx"], cam["fy"], cam["cy"], cfg=cfg, device=dev)
+        eng.state = state_from_numpy({k: v[0] if k != "scene" else {f: x[0] for f, x in v.items()}
+                                      for k, v in arrays.items()}, device=dev)
+
+    def counts():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return dict(kernels.LAUNCHES), dict(mesh.staged)
+
+    def delta(a, b):
+        return {k: b[0][k] - a[0][k] for k in a[0]}, {k: b[1][k] - a[1][k] for k in a[1]}
+
+    out = []
+    for img, T in frames:
+        c0 = counts()
+        states, stats = step(states, torch.tensor(img, device=dev), torch.tensor(T, device=dev))
+        c1 = counts()
+        got = progs.update(img, T)
+        c2 = counts()
+        row = dict(eager=local_block(states), programs=local_block(progs.states),
+                   eager_packed=stats["packed"].cpu().numpy(), packed=got["packed"].cpu().numpy(),
+                   eager_counts=delta(c0, c1), counts=delta(c1, c2))
+        if eng is not None:
+            eng.update(img, T)
+            row["single"] = state_to_numpy(eng.state)
+        out.append(row)
+    return dict(frames=out, backend=mesh.backend,
+                programs={p.label: (len(p.graphs), len(p.exchanges), p.replays)
+                          for p in progs.cache.values()})
