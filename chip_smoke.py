@@ -897,6 +897,18 @@ def run_work(torch, calls):
     return tot
 
 
+def traced_kernels(torch, prof):
+    """Each KERNEL_SYMBOLS kernel's device events in a profiler trace:
+    {kernel: dict(ms=summed device ms, launches=events)}."""
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {}
+    for k, sym in KERNEL_SYMBOLS.items():
+        evs = [e for e in dev if sym in e.name]
+        out[k] = dict(ms=sum(e.time_range.end - e.time_range.start for e in evs) / 1e3,
+                      launches=len(evs))
+    return out
+
+
 def profile_run(torch, P, kernels, frames, cam, label, account=False):
     """The 640x480 run as ``drive`` runs its updates, each a graph replay
     (no hook), under torch.profiler (CPU and CUDA activity): each kernel's
@@ -926,11 +938,8 @@ def profile_run(torch, P, kernels, frames, cam, label, account=False):
     span = (max(e.time_range.end for e in dev_events)
             - min(e.time_range.start for e in dev_events)) / 1e3
     out = dict(busy_ms=busy, span_ms=span, wall_ms=wall_ms, busy_share_span=busy / span,
-               busy_share_wall=busy / wall_ms, launches=launches, kernels={})
-    for k, sym in KERNEL_SYMBOLS.items():
-        evs = [e for e in dev_events if sym in e.name]
-        out["kernels"][k] = dict(ms=sum(e.time_range.end - e.time_range.start for e in evs) / 1e3,
-                                 launches=len(evs))
+               busy_share_wall=busy / wall_ms, launches=launches,
+               kernels=traced_kernels(torch, prof))
     log(f"  profile {label}: device busy {out['busy_ms']:.3f} ms = "
         f"{100 * out['busy_share_span']:.2f} % of the profiled span {out['span_ms']:.1f} ms, "
         f"{100 * out['busy_share_wall']:.2f} % of the same run's unprofiled wall {wall_ms:.1f} ms")
@@ -1578,6 +1587,9 @@ MESH_MU_P99 = 0.02
 MESH_SWITCH_EAGER_MS = "1293.7-1647.7"
 MESH_MU_REL = 0.028
 MESH_MU_OVER = 5e-4
+# rank 0 of each layout replays the sequence's last frames again under the
+# profiler (their programs are all captured by then)
+MESH_PROFILE_FRAMES = 8
 
 
 def slab_calls(torch, kept, keep_frame):
@@ -1601,23 +1613,45 @@ def tiles_err(a, b):
     return max(max_err(torch.as_tensor(x), torch.as_tensor(y)) for x, y in pairs)
 
 
+def mesh_device_regime(torch, mesh, states, T_curr_world, cam, cfg, height, width):
+    """The sharded step's regime decided on the device, as the JAX step
+    decides it: ``_degenerate`` of each local slot, an ``all_reduce`` max
+    over ``kf`` and a host read; None where the config has no choice. The
+    eager oracle's regime (the replay's is ``sharded_regime``, on the
+    host)."""
+    from rpg_open_remode_tpu_torch.parallel import collectives
+    from rpg_open_remode_tpu_torch.parallel.sharded import _degenerate
+    from rpg_open_remode_tpu_torch.utils import se3
+
+    if not (cfg.match_mode == "rect" and cfg.zero_baseline_fallback):
+        return None
+    return tuple(bool(collectives.all_reduce(mesh, _degenerate(
+        se3.compose(T_curr_world, st.T_world_ref), st.scene, cam, cfg, height, width), "kf",
+        "max") > 0) for st in states)
+
+
 def mesh_rank(mesh, io, frames, denoise):
     """One rank of a parallel-phase mesh (a spawned process): the ring of
     one slot per kf row, seeded on frame 0 with the sharded reseed and
     stepped over the other frames (slot 1 reseeded on MESH_RESEED), twice
     from the same start and frame by frame in turns: replayed (the mesh's
-    compiled programs, ``parallel.ShardedPrograms``) and eager (the
-    ``build_sharded_*`` functions they capture, given the programs' host
-    regime). Per frame and path: the
-    host-clock ms (synchronized), the launch counts and staged bytes it
-    added; the replayed (1, 1, 1) frames run under
-    ``set_sync_debug_mode("error")``. Keeps the eager frames
-    COARSE_FROM..KEEP_FRAME's kernel calls (the band's slab shapes) and
-    holds each of KEEP_FRAME's, and the last coarse pass up to it, against
-    its plain version; times them; with ``denoise`` also runs the sharded
-    TV-L1 both ways. Returns the rank's tiles and figures."""
+    compiled programs, ``parallel.ShardedPrograms``, with the regime chosen
+    on the host) and eager (the ``build_sharded_*`` functions they capture,
+    with the regime decided on the device, ``mesh_device_regime``, and held
+    equal to the host's). Per frame and path: the host-clock ms
+    (synchronized), the launch counts and staged bytes it added; the
+    replayed (1, 1, 1) frames run under ``set_sync_debug_mode("error")``.
+    Keeps the eager frames COARSE_FROM..KEEP_FRAME's kernel calls (the
+    band's slab shapes) and holds each of KEEP_FRAME's, and the last coarse
+    pass up to it, against its plain version; times them; with ``denoise``
+    also runs the sharded TV-L1 both ways. Last, the last
+    MESH_PROFILE_FRAMES frames are replayed again with the launch counts
+    zeroed just before, rank 0 under the profiler: each kernel's launches
+    in its trace against the counts. Returns the rank's tiles and
+    figures."""
     import torch
     import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
 
     from rpg_open_remode_tpu_torch import kernels
     from rpg_open_remode_tpu_torch.config import RemodeConfig
@@ -1639,6 +1673,10 @@ def mesh_rank(mesh, io, frames, denoise):
     reseed = build_sharded_reseed(mesh, cam, cfg, h, w)
     progs = ShardedPrograms(mesh, h, w, cam, (CAM_640["fx"], CAM_640["fy"]), cfg)
     one_rank = mesh.size == 1
+    # what the eager oracle's device regime stages a frame over gloo on a
+    # kf = 2 mesh, which the replay does not: each local slot's int32 flag
+    # out to pinned memory and back
+    regime_bytes = 8 if mesh.axis_size("kf") > 1 and mesh.backend == "gloo" else 0
 
     def counts():
         torch.cuda.synchronize()
@@ -1669,6 +1707,7 @@ def mesh_rank(mesh, io, frames, denoise):
     kept = {}
     per = {"eager": [], "replay": []}   # per frame: (ms, launches, staged bytes)
     debug_frames = 0
+    regime_off = 0       # frames whose host regime is not the device's
     reseed_err = None
     for j in range(1, len(frames)):
         for which in (("eager", "replay") if j % 2 else ("replay", "eager")):
@@ -1677,16 +1716,15 @@ def mesh_rank(mesh, io, frames, denoise):
             if which == "eager":
                 calls = kept.setdefault(j, []) if COARSE_FROM <= j <= KEEP_FRAME else None
                 img, T, _ = eager_inputs(j)
-                # the programs' regime: the device's would add its own kf
-                # collective, which the replay does not run
-                regime = progs.regime(np.asarray(frames[j][1], np.float32))
+                regime = mesh_device_regime(torch, mesh, states, T, cam, cfg, h, w)
+                regime_off += regime != progs.regime(np.asarray(frames[j][1], np.float32))
                 with intercept(None if calls is None else
                                (lambda kind, args: calls.append((kind, args)))):
                     states, stats = step(states, img, T, regime)
             else:
                 T_host = progs.load_frame(frames[j][0], frames[j][1])
                 prog = progs.cache.get(("step", progs.dtype, progs.regime(T_host)))
-                debug = one_rank and prog is not None and bool(prog.graphs)
+                debug = one_rank and prog is not None and prog.graph is not None
                 if debug:
                     torch.cuda.set_sync_debug_mode("error")
                 try:
@@ -1708,11 +1746,12 @@ def mesh_rank(mesh, io, frames, denoise):
                staged={k: [x[2] for x in v] for k, v in per.items()},
                state=local_block(progs.states),
                state_err=tiles_err(local_block(progs.states), local_block(states)),
-               reseed_err=reseed_err, debug_frames=debug_frames,
+               reseed_err=reseed_err, debug_frames=debug_frames, regime_off=regime_off,
+               regime_bytes=regime_bytes * len(states),
                packed=progs.packed.cpu().numpy(),
                packed_err=max_err(progs.packed, stats["packed"]),
                exchange_points=[len(p.exchanges) for p in step_prog],
-               graphs=[len(p.graphs) for p in step_prog],
+               graphs=[len(p.graph) for p in step_prog],
                captures={p.label: p.capture_s for p in progs.captures()})
     # one rank at a time, so that no other rank's work shares the card
     for turn in range(mesh.size):
@@ -1738,6 +1777,26 @@ def mesh_rank(mesh, io, frames, denoise):
                    denoise_ms={k: min(v) for k, v in den_ms.items()},
                    denoise_exchange_points=len(dprog.exchanges),
                    denoise_capture_s=dprog.capture_s)
+    # the replayed run again over the last frames (after every comparison
+    # with the eager run), the counts zeroed just before: rank 0's trace
+    # must hold the launches they add up to
+    again = range(len(frames) - MESH_PROFILE_FRAMES, len(frames))
+    cached, replays = len(progs.cache), sum(p.replays for p in progs.cache.values())
+    dist.barrier()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+          if mesh.rank == 0 else contextlib.nullcontext()) as prof:
+        for j in again:
+            progs.step(progs.load_frame(frames[j][0], frames[j][1]))
+        torch.cuda.synchronize()
+    counted = dict(kernels.LAUNCHES)
+    if (len(progs.cache) != cached
+            or sum(p.replays for p in progs.cache.values()) - replays != len(again)):
+        raise AssertionError("the profiled frames were not all replays of captured programs")
+    if prof is not None:
+        out["profile"] = dict(frames=len(again), counted=counted,
+                              traced=traced_kernels(torch, prof))
     out["pool_mib"] = progs.pool_bytes() / 2 ** 20
     return out
 
@@ -1847,9 +1906,10 @@ def mesh_phase(torch, P, kernels, frames640):
     over the first MESH_FRAMES frames, replayed (the mesh's compiled
     programs) and eager from the same start, in turns, held to each other
     bit for bit (states, the reseeded slot, the TV-L1 at MESH_DENOISE;
-    launches and staged bytes a frame) and to the single engine, the kernel
-    calls of the band slabs against their plain versions, the sharded TV-L1
-    against the single-device one, and the CLI's ``run --mesh 2,1,2
+    the host regime and the device's; launches and staged bytes a frame),
+    rank 0's profiled replay to the launch counts, and to the single
+    engine; the kernel calls of the band slabs against their plain
+    versions, the sharded TV-L1 against the single-device one, and the CLI's ``run --mesh 2,1,2
     --keyframes 2 --propagate``. Ranks are spawned processes sharing the
     card (gloo collectives, staged through pinned host memory) or, for one
     rank, NCCL."""
@@ -1887,15 +1947,34 @@ def mesh_phase(torch, P, kernels, frames640):
                  exchange_points=ranks[0]["exchange_points"], graphs=ranks[0]["graphs"],
                  captures=[x["captures"] for x in ranks], pool_mib=[x["pool_mib"] for x in ranks],
                  debug_frames=ranks[0]["debug_frames"], slots=[], calls=[])
+        # the eager frame stages the replay's bytes plus its device regime's
         same_counts = all(x["launches"]["replay"] == x["launches"]["eager"]
-                          and x["staged"]["replay"] == x["staged"]["eager"] for x in ranks)
-        log(f"  mesh {shape}: replayed against eager from the same start, max err states "
-            f"{r['state_err']:.3g}, packed stats {r['packed_err']:.3g}"
+                          and [b + x["regime_bytes"] for b in x["staged"]["replay"]]
+                          == x["staged"]["eager"] for x in ranks)
+        r["regime_off"] = sum(x["regime_off"] for x in ranks)
+        log(f"  mesh {shape}: replayed (host regime) against eager (device regime, "
+            f"{ranks[0]['regime_bytes']} B staged a frame per rank for its kf max) from the same "
+            f"start, max err states {r['state_err']:.3g}, packed stats {r['packed_err']:.3g}"
             + ("" if r["reseed_err"] is None else
                f", the slot reseeded on frame {MESH_RESEED} {r['reseed_err']:.3g}")
-            + f"; launches and staged bytes of every frame equal: {same_counts}")
-        if r["state_err"] != 0.0 or r["packed_err"] != 0.0 or r["reseed_err"] or not same_counts:
+            + f"; frames whose host regime differs from the device's (all ranks) "
+            f"{r['regime_off']}; launches of every frame equal, staged bytes equal but for the "
+            f"device regime's: {same_counts}")
+        if (r["state_err"] != 0.0 or r["packed_err"] != 0.0 or r["reseed_err"]
+                or r["regime_off"] or not same_counts):
             bad.append(f"{shape}: the replayed run differs from the eager run")
+        prof = r["profile"] = ranks[0]["profile"]
+        off = {k: (t["launches"], prof["counted"][k]) for k, t in prof["traced"].items()
+               if t["launches"] != prof["counted"][k]}
+        log(f"  mesh {shape}: rank 0 replayed its last {prof['frames']} frames again under the "
+            f"profiler: launches traced (counted) "
+            + ", ".join(f"{k} {t['launches']} ({prof['counted'][k]})"
+                        for k, t in prof["traced"].items())
+            + f"; sweep {prof['traced']['sweep']['ms']:.3f} ms, warp "
+            f"{prof['traced']['warp']['ms']:.3f} ms device")
+        if off or any(prof["counted"][k] <= 0 for k in ("sweep", "warp")):
+            bad.append(f"{shape}: the profiled replay's launches (traced, counted) {off}, "
+                       f"counted {prof['counted']}")
         for k in range(shape[0]):
             a = mesh_agreement(P, {f: got[f][k] for f in ("conv", "mu", "sigma_sq", "a", "b")},
                                refs[k])

@@ -11,8 +11,9 @@ JAX package).
     of one rank started in this process (NCCL on the card, gloo on the
     CPU), against B1: the cost of the mesh wrapping without communication.
     The step is the mesh's compiled program (``parallel.ShardedPrograms``:
-    its regime chosen on the host, one CUDA graph replay a frame, as B1's
-    engine replays its own), timed in turns with the eager
+    one CUDA graph replay a frame, as B1's engine replays its own; its
+    config has ``zero_baseline_fallback`` off, so no regime to choose),
+    timed in turns with the eager
     ``parallel.build_sharded_update`` step it captures
     (``sharded_mesh1_eager_updates_per_s``).
 
@@ -109,7 +110,7 @@ def sharded_mesh1(imgs, poses, bounds, width, height, cam, first, end, device):
 
         def run_eager():
             for i in range(first, end):
-                holder[0], _ = step(holder[0], imgs[i], poses[i])
+                holder[0], _ = step(holder[0], imgs[i], poses[i], None)   # no choice
             force(holder[0][0].mu)
 
         times = {"replay": [], "eager": []}

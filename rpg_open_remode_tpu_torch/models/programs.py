@@ -36,14 +36,9 @@ inside the program. Here:
     reads them. A capture records the kernel launches its wrappers would
     make (``kernels.recording``) and each replay adds them to
     ``kernels.LAUNCHES``.
-  * A body that runs collectives (the mesh's programs,
-    ``parallel/programs.py``) captures as one graph per segment between its
-    exchange points (``parallel/collectives.Exchange``); a replay runs the
-    exchanges between the segments on the host. A body without a collective
-    is one graph and one replay.
   * On the CPU a call runs the body: the same function and the same
-    copies (the exchange points' static buffers too), nothing captured.
-    There is no fallback: a failed capture, replay or exchange raises.
+    copies, nothing captured. There is no fallback: a failed capture or
+    replay raises.
 
 The functional ``update_step``, ``update_chunk`` and
 ``_set_reference_propagated`` of ``models/depthmap.py`` stay eager: they
@@ -88,98 +83,59 @@ def stats_of(packed: torch.Tensor) -> dict:
 
 
 class Program:
-    """``body()`` captured as CUDA graphs at its first call on the card
+    """``body()`` captured as a CUDA graph at its first call on the card
     (after an eager warm-up that is the call's result) and replayed after;
-    on the CPU every call runs ``body()``.
-
-    A body that runs collectives (the mesh's programs) meets exchange
-    points (``parallel/collectives.Exchange``): the warm-up creates one per
-    collective, with its static buffers, and the capture ends a segment at
-    each, so the body captures as one graph per segment. A replay runs the
-    segments with each exchange between them, on the host. A body with no
-    collective is one graph and one replay."""
+    on the CPU every call runs ``body()``. A subclass may run, capture and
+    replay the body otherwise (``_run``, ``_capture``, ``_replay``)."""
 
     def __init__(self, body, device: torch.device, pool, label: str):
         self.body = body
         self.device = device
         self.pool = pool
         self.label = label
-        self.graphs: list = []        # one per segment, once captured
-        self.exchanges: list = []     # the exchange points between them, in order
+        self.graph = None
         self.launches: dict | None = None   # kernel launches of one replay
         self.capture_s: float | None = None  # host seconds of the capture
         self.captured_bytes: int | None = None  # reserved memory it added
         self.replays = 0
-        self._capturing = None        # the segment's graph while capturing
-        self._met = 0                 # exchange points met in this run of the body
 
     def __call__(self) -> None:
         if self.device.type != "cuda":
-            self._run(capture=False)
-        elif not self.graphs:
+            self._run()
+        elif self.graph is None:
             self._warm_up_and_capture()
         else:
-            for k, graph in enumerate(self.graphs):
-                graph.replay()
-                if k < len(self.exchanges):
-                    self.exchanges[k].run()
+            self._replay()
             kernels.add_launches(self.launches)
             self.replays += 1
 
-    def exchange_sequence(self) -> list[tuple]:
-        """(collective, mesh axis) of each exchange point, in order."""
-        return [ex.signature[:2] for ex in self.exchanges]
+    def _run(self) -> None:
+        """The body, run eagerly."""
+        self.body()
 
-    # -- exchange points (called by parallel/collectives) ----------------------
-
-    def exchange_point(self, signature, make):
-        """The next exchange point of this run of the body: made by
-        ``make()`` on the first run, then held to its ``signature``."""
-        i = self._met
-        self._met += 1
-        if i == len(self.exchanges):
-            if self._capturing is not None:
-                raise RuntimeError(f"{self.label}: the capture met an exchange point "
-                                   "the warm-up did not")
-            self.exchanges.append(make())
-        point = self.exchanges[i]
-        if point.signature != signature:
-            raise RuntimeError(f"{self.label}: exchange point {i} is {signature}, "
-                               f"was {point.signature}")
-        return point
-
-    def exchange_boundary(self, point) -> None:
-        """While capturing: end this segment and begin the next. Otherwise:
-        run the exchange."""
-        if self._capturing is None:
-            point.run()
-            return
-        self._capturing.capture_end()
-        self.graphs.append(self._capturing)
-        self._begin_segment()
-
-    def _begin_segment(self) -> None:
-        self._capturing = torch.cuda.CUDAGraph()
-        self._capturing.capture_begin(pool=self.pool, capture_error_mode="thread_local")
-
-    def _run(self, capture: bool) -> None:
-        from rpg_open_remode_tpu_torch.parallel import collectives
-
-        self._met = 0
-        with collectives.exchange_points(self):
-            if capture:
-                self._begin_segment()
+    def _capture(self):
+        """The body captured on the current stream: what ``_replay``
+        replays."""
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+        try:
             self.body()
-        if self._met != len(self.exchanges):
-            raise RuntimeError(f"{self.label}: {self._met} exchange points, the warm-up "
-                               f"met {len(self.exchanges)}")
+        except BaseException:
+            with contextlib.suppress(Exception):
+                graph.capture_end()
+            raise
+        graph.capture_end()
+        return graph
+
+    def _replay(self) -> None:
+        self.graph.replay()
 
     def _warm_up_and_capture(self) -> None:
         current = torch.cuda.current_stream(self.device)
         side = _capture_stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            self._run(capture=False)
+            self._run()
             # garbage that owns a graph (a dropped engine) must not be
             # collected inside the capture: destroying a graph there
             # invalidates it
@@ -190,25 +146,14 @@ class Program:
             t0 = time.perf_counter()
             try:
                 with kernels.recording() as launches:
-                    try:
-                        self._run(capture=True)
-                    except BaseException:
-                        if self._capturing is not None:
-                            with contextlib.suppress(Exception):
-                                self._capturing.capture_end()
-                        self.graphs = []
-                        raise
-                    finally:
-                        graph, self._capturing = self._capturing, None
-                    graph.capture_end()
-                    self.graphs.append(graph)
+                    graph = self._capture()
             finally:
                 if gc_on:
                     gc.enable()
             self.capture_s = time.perf_counter() - t0
             self.captured_bytes = torch.cuda.memory_reserved(self.device) - reserved
         current.wait_stream(side)
-        self.launches = launches
+        self.graph, self.launches = graph, launches
 
 
 class Inputs:
@@ -464,7 +409,7 @@ class Programs:
         return pool_bytes(self.pool)
 
     def captures(self) -> list[Program]:
-        return [p for p in self.cache.values() if p.graphs]
+        return [p for p in self.cache.values() if p.graph is not None]
 
 
 def pool_bytes(pool) -> int:

@@ -16,11 +16,11 @@ before the collective and the result back to the card after it. Those
 copies are explicit and counted in ``mesh.staged``; the compute stays on the
 card. A group of one rank is no collective at all.
 
-Inside a compiled program (``models/programs.Program``, which the mesh's
-programs in ``parallel/programs.py`` build on) each collective is an
-exchange point between two graph segments, never captured: the program's
-first call creates one ``Exchange`` per collective it meets, with static
-send and receive buffers (pinned host memory where gloo stages a CUDA
+Inside a compiled program of the mesh
+(``parallel/programs.SegmentedProgram``) each collective is an exchange
+point between two graph segments, never captured: the program's first
+call creates one ``Exchange`` per collective it meets, with static send
+and receive buffers (pinned host memory where gloo stages a CUDA
 tensor, else on the rank's device). Each call then copies the input into
 the send buffer, ends the segment (while capturing) or runs the collective
 on the static buffers (the host waits for the copy first), and copies the

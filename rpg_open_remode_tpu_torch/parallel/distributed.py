@@ -10,8 +10,7 @@ per-rank counterparts:
   * ``make_distributed_mesh`` lays the mesh kf-major over the ranks, so
     whole keyframe rows sit on one host when the hosts divide the rows;
   * ``replicate_frame`` / ``shard_local_keyframes`` feed a rank: the frame
-    every rank loads (staged into its programs' static inputs when given
-    them), and its tiles of its kf row's keyframes;
+    every rank loads, and its tiles of its kf row's keyframes;
   * ``local_block`` / ``local_stats`` give this rank's part of the state
     and the stats as numpy;
   * ``gather_kf_slot`` assembles a local slot's field on the kf row's
@@ -72,14 +71,10 @@ def make_distributed_mesh(kf: int | None = None, ty: int | None = None, tx: int 
     return make_mesh(n, kf=kf, ty=ty, tx=tx, device=device, hosts=hosts)
 
 
-def replicate_frame(mesh: Mesh, frame, inputs=None) -> torch.Tensor:
+def replicate_frame(mesh: Mesh, frame) -> torch.Tensor:
     """The current frame, which every rank loads from its own input, on this
-    rank's device. Given the static ``inputs`` of the rank's programs
-    (``models/programs.Inputs``, ``ShardedPrograms.inputs``), it is staged
-    into their frame buffer, which is returned."""
-    if inputs is None:
-        return torch.as_tensor(np.asarray(frame)).to(mesh.device)
-    return inputs.images[inputs.load_image(frame)]
+    rank's device."""
+    return torch.as_tensor(np.asarray(frame)).to(mesh.device)
 
 
 def shard_local_keyframes(mesh: Mesh, states_local: list, n_kf_global: int) -> list:
@@ -104,12 +99,9 @@ def local_block(states: list) -> dict:
     return out
 
 
-def local_stats(mesh: Mesh, stats) -> dict:
+def local_stats(mesh: Mesh, stats: dict) -> dict:
     """The stats of this rank's local slots as numpy (``packed``: the rows
-    of its kf row), from the eager step's ``stats`` or from the static
-    packed output of the rank's ``ShardedPrograms``."""
-    if not isinstance(stats, dict):
-        stats = stats.stats()
+    of its kf row)."""
     out = {k: v.cpu().numpy() for k, v in stats.items() if k != "packed"}
     n_local = len(out["update"])
     first = mesh.axis_index("kf") * n_local

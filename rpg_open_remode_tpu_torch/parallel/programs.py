@@ -8,14 +8,16 @@ does for the single engine.
     buffers (``states``), the static inputs (the frame, its pose, the scene
     bounds and a keyframe pose), a static ``[KF, 6]`` packed output
     (``packed``, the step's metrics matrix) and static denoised tiles
-    (``denoised``), with a cache of ``models/programs.Program``s keyed by
-    the step's (input dtype, regime), the reseed's (input dtype, flat or
-    propagated, slot) and the denoise's (local slots, lambda).
+    (``denoised``), with a cache of ``SegmentedProgram``s keyed by the
+    step's (input dtype, regime), the reseed's (input dtype, slot) and the
+    denoise's (local slots, lambda).
   * A collective is an exchange point between graph segments, never
     captured (``parallel/collectives.Exchange``): gloo cannot be captured,
-    and NCCL capture needs a card per rank. A replay runs the segments with
-    the exchanges between them on the host. A one-rank world has no
-    exchange, so at (1, 1, 1) each program is one graph and one replay.
+    and NCCL capture needs a card per rank. A ``SegmentedProgram`` (a
+    ``models/programs.Program``) captures its body as one graph per
+    segment, and a replay runs the segments with the exchanges between
+    them on the host. A one-rank world has no exchange, so at (1, 1, 1)
+    each program is one graph and one replay.
   * The step's regime is chosen on the host (``sharded.sharded_regime``)
     from host copies of every global slot's keyframe pose and mean depth.
     Every rank reseeds every slot alike (the node calls the reseed on every
@@ -35,7 +37,7 @@ captured bodies and the oracle the replays are held against.
 
 from __future__ import annotations
 
-import dataclasses
+import contextlib
 
 import numpy as np
 import torch
@@ -43,11 +45,93 @@ import torch
 from rpg_open_remode_tpu_torch.config import RemodeConfig
 from rpg_open_remode_tpu_torch.models.programs import Inputs, Program, pool_bytes
 from rpg_open_remode_tpu_torch.models.state import SceneParams, clone, copy_into, empty_state
+from rpg_open_remode_tpu_torch.parallel import collectives
 from rpg_open_remode_tpu_torch.parallel.sharded import (
     SHARDED_PACKED_KEYS, build_sharded_denoise, build_sharded_reseed, build_sharded_update,
     shard_state, sharded_regime, tile_state,
 )
 from rpg_open_remode_tpu_torch.utils.camera import PinholeCamera
+
+
+class SegmentedProgram(Program):
+    """A ``Program`` whose body runs collectives, each an exchange point
+    (``collectives.Exchange``) between two graph segments. The warm-up
+    makes one per collective it meets, with its static buffers; the capture
+    ends a segment at each, so ``graph`` is the list of segment graphs; a
+    replay runs each exchange between its segments, on the host. A body
+    with no collective captures as one segment. Every run must meet the
+    warm-up's exchange points in its order, or it raises."""
+
+    def __init__(self, body, device: torch.device, pool, label: str):
+        super().__init__(body, device, pool, label)
+        self.exchanges: list = []     # the exchange points, in order
+        self._segments = None         # the graphs captured so far, while capturing
+        self._met = 0                 # exchange points met in this run of the body
+
+    # -- called by parallel/collectives -------------------------------------------
+
+    def exchange_point(self, signature, make):
+        """The next exchange point of this run of the body: made by
+        ``make()`` on the first run, then held to its ``signature``."""
+        i = self._met
+        self._met += 1
+        if i == len(self.exchanges):
+            if self._segments is not None:
+                raise RuntimeError(f"{self.label}: the capture met an exchange point "
+                                   "the warm-up did not")
+            self.exchanges.append(make())
+        point = self.exchanges[i]
+        if point.signature != signature:
+            raise RuntimeError(f"{self.label}: exchange point {i} is {signature}, "
+                               f"was {point.signature}")
+        return point
+
+    def exchange_boundary(self, point) -> None:
+        """While capturing: end this segment and begin the next. Otherwise:
+        run the exchange."""
+        if self._segments is None:
+            point.run()
+            return
+        self._segments[-1].capture_end()
+        self._begin_segment()
+
+    def _begin_segment(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        self._segments.append(graph)
+        graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+
+    # -- Program's hooks -----------------------------------------------------------
+
+    def _through_exchanges(self) -> None:
+        self._met = 0
+        with collectives.exchange_points(self):
+            self.body()
+        if self._met != len(self.exchanges):
+            raise RuntimeError(f"{self.label}: {self._met} exchange points, the warm-up "
+                               f"met {len(self.exchanges)}")
+
+    def _run(self) -> None:
+        self._through_exchanges()
+
+    def _capture(self) -> list:
+        self._segments = segments = []
+        try:
+            self._begin_segment()
+            self._through_exchanges()
+        except BaseException:
+            with contextlib.suppress(Exception):
+                segments[-1].capture_end()
+            raise
+        finally:
+            self._segments = None
+        segments[-1].capture_end()
+        return segments
+
+    def _replay(self) -> None:
+        for k, graph in enumerate(self.graph):
+            graph.replay()
+            if k < len(self.exchanges):
+                self.exchanges[k].run()
 
 
 class ShardedPrograms:
@@ -90,7 +174,7 @@ class ShardedPrograms:
         self.cache: dict = {}
         self.pool = torch.cuda.graph_pool_handle() if cuda else None
         self._step_fn = build_sharded_update(mesh, cam, cfg, height, width)
-        self._reseed_fns: dict = {}
+        self._reseed_fn = build_sharded_reseed(mesh, cam, cfg, height, width)
         self._denoise_fn = build_sharded_denoise(mesh, cfg, height, width,
                                                  iterations=cfg.denoise_iters)
 
@@ -120,14 +204,14 @@ class ShardedPrograms:
 
     # -- the programs ------------------------------------------------------------
 
-    def program(self, key: tuple) -> Program:
+    def program(self, key: tuple) -> SegmentedProgram:
         """The cached program of ``key``: ("step", dtype, regime),
-        ("reseed", dtype, propagated, slot) or ("denoise", slots, lam)."""
+        ("reseed", dtype, slot) or ("denoise", slots, lam)."""
         prog = self.cache.get(key)
         if prog is None:
             body = getattr(self, "_" + key[0])(*key[1:])
             label = " ".join(str(v).replace("torch.", "") for v in key)
-            prog = self.cache[key] = Program(body, self.device, self.pool, label)
+            prog = self.cache[key] = SegmentedProgram(body, self.device, self.pool, label)
         return prog
 
     def _step(self, dtype, regime):
@@ -139,12 +223,7 @@ class ShardedPrograms:
             self.packed.copy_(stats["packed"])
         return body
 
-    def _reseed(self, dtype, propagated: bool, slot: int):
-        if propagated not in self._reseed_fns:
-            cfg = dataclasses.replace(self.cfg, propagate_depth=propagated)
-            self._reseed_fns[propagated] = build_sharded_reseed(
-                self.mesh, self.cam, cfg, self.height, self.width)
-        fn = self._reseed_fns[propagated]
+    def _reseed(self, dtype, slot: int):
         local = slot - self.first
 
         def body():
@@ -152,7 +231,7 @@ class ShardedPrograms:
             self.refs[slot, :12].copy_(self.ref_pose.reshape(-1))
             self.refs[slot, 12].copy_(scene.avg_depth)
             if 0 <= local < self.n_local:
-                new = fn(self.states, slot, self.inputs.images[dtype], self.ref_pose, scene)
+                new = self._reseed_fn(self.states, slot, self.inputs.images[dtype], self.ref_pose, scene)
                 copy_into(self.states[local], new[local])
         return body
 
@@ -183,15 +262,13 @@ class ShardedPrograms:
         self.step(self.load_frame(img, T_curr_world))
         return self.stats()
 
-    def reseed(self, slot: int, T_world_ref, propagated: bool | None = None) -> None:
+    def reseed(self, slot: int, T_world_ref) -> None:
         """Re-seed global slot ``slot`` from the loaded frame and bounds, at
-        keyframe pose ``T_world_ref`` (an array, or a tensor on the device);
-        every rank calls it alike. ``propagated`` defaults to the config's
-        ``propagate_depth``."""
-        if propagated is None:
-            propagated = self.cfg.propagate_depth
+        keyframe pose ``T_world_ref`` (an array, or a tensor on the device),
+        flat or propagated as the config's ``propagate_depth`` says; every
+        rank calls it alike."""
         self.inputs.upload(self.ref_pose, T_world_ref)
-        self.program(("reseed", self.dtype, bool(propagated), slot))()
+        self.program(("reseed", self.dtype, slot))()
         self._refresh_host()
 
     def denoise(self, slots, lam: float) -> list[torch.Tensor]:
@@ -226,5 +303,5 @@ class ShardedPrograms:
     def pool_bytes(self) -> int:
         return pool_bytes(self.pool)
 
-    def captures(self) -> list[Program]:
-        return [p for p in self.cache.values() if p.graphs]
+    def captures(self) -> list[SegmentedProgram]:
+        return [p for p in self.cache.values() if p.graph is not None]

@@ -23,9 +23,9 @@ single-device matcher takes the pure-rotation branch
 (``sharded_regime``) from host copies of every global slot's keyframe pose
 and mean depth, which every rank holds alike, so no collective decides it
 and every rank runs the same exchanges; the step takes it as an argument.
-Given none, the step decides on the device (``_degenerate``, an
-``all_reduce`` max over ``kf`` and a host read): the oracle the host choice
-is held against.
+``_degenerate`` is the device's form of the same test, the JAX package's;
+the tests and ``chip_smoke.py`` hold the host choice against it and the
+``kf`` max.
 
 These functions run eagerly. ``parallel/programs.py`` captures them as the
 mesh's compiled programs (the JAX ``jax.jit`` of each ``shard_map``), with
@@ -132,7 +132,9 @@ def tile_state(state: SeedState, mesh) -> SeedState:
 def _degenerate(T_curr_ref, scene, cam, cfg: RemodeConfig, height: int, width: int):
     """The regimes rectification cannot serve, as ``ops/rect_match.match``
     tests them: near-zero baseline, and (with ``forward_motion_fallback``)
-    an epipole inside or near either footprint. A 0-d int32 tensor."""
+    an epipole inside or near either footprint. A 0-d int32 tensor: the
+    JAX step's own test on the device, the oracle ``sharded_regime`` is
+    held against (with an ``all_reduce`` max over ``kf``)."""
     R = se3.rotation(T_curr_ref)
     t = se3.translation(T_curr_ref)
     C = -R.T @ t
@@ -170,11 +172,11 @@ def sharded_regime(T_curr_world, slots, cam, cfg: RemodeConfig, height: int, wid
 
 
 def build_sharded_update(mesh, cam: PinholeCamera, cfg: RemodeConfig, height: int, width: int):
-    """``step(states, curr_img, T_curr_world, regime=None) -> (states',
-    stats)``: one engine step of this rank's local slots (``states``,
-    tiles), every rank calling it with the same frame, already on the
-    rank's device (``[H, W]`` uint8 or float, ``[3, 4]`` float32).
-    ``regime`` is ``sharded_regime``'s choice; None decides on the device.
+    """``step(states, curr_img, T_curr_world, regime) -> (states', stats)``:
+    one engine step of this rank's local slots (``states``, tiles), every
+    rank calling it with the same frame, already on the rank's device
+    (``[H, W]`` uint8 or float, ``[3, 4]`` float32). ``regime`` is
+    ``sharded_regime``'s choice (None where the config has none to make).
     ``stats`` holds each key of ``SHARDED_PACKED_KEYS`` for the local slots
     (counts over the whole keyframe) and ``packed``, the ``[KF, 6]`` matrix
     of every slot, equal on every rank."""
@@ -205,12 +207,7 @@ def build_sharded_update(mesh, cam: PinholeCamera, cfg: RemodeConfig, height: in
         conv1 = seed_check.classify_seeds(st.mu, st.sigma_sq, st.a, st.b, st.scene.epsilon,
                                           border, cfg)
         st = dataclasses.replace(st, conv=conv1)
-        if cfg.match_mode == "rect" and cfg.zero_baseline_fallback:
-            if degenerate is None:
-                # both branches run collectives: the max over kf makes the
-                # choice global before any rank branches
-                deg = _degenerate(T_curr_ref, st.scene, cam, cfg, height, width)
-                degenerate = bool(collectives.all_reduce(mesh, deg, "kf", "max") > 0)
+        if choice:
             fn = sweep_fn if degenerate else rect_fn
         else:
             fn = rect_fn if cfg.match_mode == "rect" else sweep_fn
@@ -222,7 +219,12 @@ def build_sharded_update(mesh, cam: PinholeCamera, cfg: RemodeConfig, height: in
         return new_st, torch.stack([counts[k].float() for k in SHARDED_PACKED_KEYS[:5]]), \
             torch.linalg.norm(se3.translation(T_curr_ref))
 
-    def step(states, curr_img, T_curr_world, regime=None):
+    choice = cfg.match_mode == "rect" and cfg.zero_baseline_fallback
+
+    def step(states, curr_img, T_curr_world, regime):
+        if (regime is None) == choice:
+            raise ValueError(f"regime {regime} for a config that "
+                             f"{'has' if choice else 'has no'} choice to make")
         curr_img = prep_image(curr_img)
         regime = regime or (None,) * len(states)
         out = [per_kf(st, curr_img, T_curr_world, deg) for st, deg in zip(states, regime)]

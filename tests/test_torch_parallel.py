@@ -90,8 +90,6 @@ def test_feeding_a_rank(suite):
         _, y, xx = o["coords"]
         fed = o["fed"]
         np.testing.assert_array_equal(fed["frame"], x)
-        np.testing.assert_array_equal(fed["staged"], x)
-        assert fed["staged_is_input"]
         rows, cols = slice(8 * y, 8 * y + 8), slice(12 * xx, 12 * xx + 12)
         np.testing.assert_array_equal(fed["mu"], x[rows, cols])
         np.testing.assert_array_equal(fed["conv"], (x[rows, cols] > 0.5).astype(np.int32))

@@ -410,7 +410,7 @@ def test_replay_adds_recorded_launches_once_per_call():
             Replayed.calls += 1
 
     prog = programs.Program(lambda: None, torch.device("cuda"), None, "test")
-    prog.graphs, prog.launches = [Replayed()], rec
+    prog.graph, prog.launches = Replayed(), rec
     for _ in range(3):
         prog()
     assert Replayed.calls == 3 and prog.replays == 3

@@ -28,6 +28,19 @@ def _cam(mesh, cam):
     return PinholeCamera.create(cam["fx"], cam["fy"], cam["cx"], cam["cy"], device=mesh.device)
 
 
+def device_regime(mesh, states, T_curr_world, cam, cfg, height, width):
+    """The sharded step's regime decided on the device, as the JAX step
+    decides it: ``_degenerate`` of each local slot (``cam`` a
+    ``PinholeCamera``), then an ``all_reduce`` max over ``kf`` and a host
+    read; None where the config has no choice to make. The oracle of
+    ``sharded_regime``."""
+    if not (cfg.match_mode == "rect" and cfg.zero_baseline_fallback):
+        return None
+    return tuple(bool(collectives.all_reduce(mesh, _degenerate(
+        se3.compose(T_curr_world, st.T_world_ref), st.scene, cam, cfg, height, width), "kf",
+        "max") > 0) for st in states)
+
+
 def box_filter(mesh, io, x, halo):
     """This rank's tile of the 5x5 clamped box sum of ``x`` (a ty x tx
     mesh), through a ``halo``-px 2-D halo exchange."""
@@ -61,10 +74,8 @@ def collectives_suite(mesh, io, x):
 
 
 def _fed(mesh, x):
-    """``replicate_frame`` (also staged into a programs' static inputs) and
-    ``shard_local_keyframes`` on a state whose fields are ``x``: this rank's
-    copy of the frame and its tiles."""
-    from rpg_open_remode_tpu_torch.models.programs import Inputs
+    """``replicate_frame`` and ``shard_local_keyframes`` on a state whose
+    fields are ``x``: this rank's copy of the frame and its tiles."""
     from rpg_open_remode_tpu_torch.models.state import empty_state
     from rpg_open_remode_tpu_torch.parallel import replicate_frame, shard_local_keyframes
 
@@ -73,10 +84,7 @@ def _fed(mesh, x):
                                                                  cy=7.5))),
                                mu=torch.tensor(x), conv=torch.tensor(x > 0.5).int())
     tiles = shard_local_keyframes(mesh, [full], mesh.axis_size("kf"))
-    inputs = Inputs(h, w, mesh.device)
-    staged = replicate_frame(mesh, x, inputs)
     return dict(frame=replicate_frame(mesh, x).numpy(), mu=tiles[0].mu.numpy(),
-                staged=staged.numpy(), staged_is_input=staged is inputs.images[torch.float32],
                 conv=tiles[0].conv.numpy(), f_ref=tiles[0].f_ref.numpy(),
                 f_ref_full=full.f_ref.numpy())
 
@@ -94,7 +102,8 @@ def steps(mesh, io, arrays, cfg_kw, cam, frames):
     its stats and how many tile plane sweeps ran."""
     cfg = RemodeConfig(**cfg_kw)
     h, w = arrays["mu"].shape[-2:]
-    step = build_sharded_update(mesh, _cam(mesh, cam), cfg, h, w)
+    c = _cam(mesh, cam)
+    step = build_sharded_update(mesh, c, cfg, h, w)
     sweeps = [0]
     plain = epipolar.match_planesweep_tile
 
@@ -106,7 +115,10 @@ def steps(mesh, io, arrays, cfg_kw, cam, frames):
     out = []
     for img, T in frames:
         sweeps[0] = 0
-        states, stats = step(shard_state(arrays, mesh), torch.tensor(img), torch.tensor(T))
+        states = shard_state(arrays, mesh)
+        T = torch.tensor(T)
+        states, stats = step(states, torch.tensor(img), T,
+                             device_regime(mesh, states, T, c, cfg, h, w))
         out.append(dict(state=local_block(states), stats=local_stats(mesh, stats),
                         packed=stats["packed"].numpy(), sweeps=sweeps[0]))
     return out
@@ -161,8 +173,9 @@ def _programs(mesh, arrays, cfg, cam):
 
 
 def _sequences(progs) -> dict:
-    """Each cached program's exchange-point sequence, by its label."""
-    return {p.label: p.exchange_sequence() for p in progs.cache.values()}
+    """Each cached program's exchange points, (collective, mesh axis) in
+    order, by its label."""
+    return {p.label: [ex.signature[:2] for ex in p.exchanges] for p in progs.cache.values()}
 
 
 def programs_steps(mesh, io, arrays, cfg_kw, cam, frames):
@@ -178,17 +191,14 @@ def programs_steps(mesh, io, arrays, cfg_kw, cam, frames):
     out = []
     for img, T in frames:
         T_dev = torch.tensor(T)
-        device_regime = tuple(
-            bool(collectives.all_reduce(mesh, _degenerate(
-                se3.compose(T_dev, st.T_world_ref), st.scene, progs.cam, cfg, h, w), "kf",
-                "max") > 0) for st in states)
+        dev_regime = device_regime(mesh, states, T_dev, progs.cam, cfg, h, w)
         host_regime = progs.regime(np.asarray(T, np.float32))
-        states, stats = step(states, torch.tensor(img), T_dev)
+        states, stats = step(states, torch.tensor(img), T_dev, dev_regime)
         got = progs.update(img, T)
         out.append(dict(eager=local_block(states), programs=local_block(progs.states),
                         eager_packed=stats["packed"].numpy(), packed=got["packed"].numpy(),
-                        stats=local_stats(mesh, progs), host_regime=host_regime,
-                        device_regime=device_regime))
+                        stats=local_stats(mesh, progs.stats()), host_regime=host_regime,
+                        device_regime=dev_regime))
     return dict(frames=out, sequences=_sequences(progs))
 
 
@@ -229,17 +239,19 @@ def programs_reseed_denoise(mesh, io, arrays, cfg_kw, cam, slot, img, T_world_re
 class EagerPrograms(ShardedPrograms):
     """The node's programs as the eager functions they capture (the node as
     it ran before its programs): a step, reseed or denoise makes new
-    tensors, and the regime is decided on the device."""
+    tensors, and the regime is decided on the device (``device_regime``)."""
 
     def step(self, T_host):
+        regime = device_regime(self.mesh, self.states, self.inputs.pose, self.cam, self.cfg,
+                               self.height, self.width)
         self.states, stats = self._step_fn(self.states, self.inputs.images[self.dtype],
-                                           self.inputs.pose)
+                                           self.inputs.pose, regime)
         self.packed = stats["packed"]
 
     def load_bounds(self, min_depth, max_depth):
         self._bounds = (min_depth, max_depth)
 
-    def reseed(self, slot, T_world_ref, propagated=None):
+    def reseed(self, slot, T_world_ref):
         fn = build_sharded_reseed(self.mesh, self.cam, self.cfg, self.height, self.width)
         scene = SceneParams.create(*self._bounds, self.cfg, device=self.device)
         self.states = fn(self.states, slot, self.inputs.images[self.dtype], T_world_ref, scene)
@@ -292,10 +304,7 @@ def regime_compare(mesh, io, arrays, cfg_kw, cam, poses):
              for i in range(len(arrays["mu"]))]
     out = []
     for T in poses:
-        T_dev = torch.tensor(T)
-        dev = tuple(bool(collectives.all_reduce(mesh, _degenerate(
-            se3.compose(T_dev, st.T_world_ref), st.scene, c, cfg, h, w), "kf", "max") > 0)
-            for st in states)
+        dev = device_regime(mesh, states, torch.tensor(T), c, cfg, h, w)
         host = sharded_regime(T, slots, (cam["fx"], cam["fy"]), cfg, h, w, mesh.axis_size("kf"))
         out.append((host, dev))
     return out
@@ -316,7 +325,8 @@ def graphs_vs_eager(mesh, io, arrays, cfg_kw, cam, frames, single=False):
     cfg = RemodeConfig(**cfg_kw)
     h, w = arrays["mu"].shape[-2:]
     dev = mesh.device
-    step = build_sharded_update(mesh, _cam(mesh, cam), cfg, h, w)
+    c = _cam(mesh, cam)
+    step = build_sharded_update(mesh, c, cfg, h, w)
     progs = _programs(mesh, arrays, cfg, cam)
     states = shard_state(arrays, mesh)
     eng = None
@@ -335,8 +345,10 @@ def graphs_vs_eager(mesh, io, arrays, cfg_kw, cam, frames, single=False):
 
     out = []
     for img, T in frames:
+        T_dev = torch.tensor(T, device=dev)
+        regime = device_regime(mesh, states, T_dev, c, cfg, h, w)
         c0 = counts()
-        states, stats = step(states, torch.tensor(img, device=dev), torch.tensor(T, device=dev))
+        states, stats = step(states, torch.tensor(img, device=dev), T_dev, regime)
         c1 = counts()
         got = progs.update(img, T)
         c2 = counts()
@@ -348,5 +360,5 @@ def graphs_vs_eager(mesh, io, arrays, cfg_kw, cam, frames, single=False):
             row["single"] = state_to_numpy(eng.state)
         out.append(row)
     return dict(frames=out, backend=mesh.backend,
-                programs={p.label: (len(p.graphs), len(p.exchanges), p.replays)
+                programs={p.label: (len(p.graph), len(p.exchanges), p.replays)
                           for p in progs.cache.values()})
