@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out PATH] [--baseline DIR]
+    python3 chip_smoke.py [--out PATH] [--baseline DIR] [--mesh-only]
 
 Builds the CUDA kernels of ``rpg_open_remode_tpu_torch/csrc`` and checks
 each against its plain PyTorch version at the main path's shapes
@@ -29,11 +29,14 @@ the CLI's ``run --keyframes 4 --propagate`` with exact launch counts, and
 the epipolar-walk oracle against the rectified matcher on frame 10. Then the
 device mesh (``parallel/``): the sharded step at (1,1,1) (NCCL, one rank),
 (1,2,2) and (2,1,2) (four spawned ranks sharing the card, gloo collectives
-staged through pinned host memory) over the first 40 frames against single
-engines fed alike, every rank's band-slab sweep and resample calls of frame
-10 held bit for bit against their plain versions and timed, the sharded
-TV-L1 against the single-device one, and the CLI's ``run --mesh 2,1,2
---keyframes 2 --propagate``. Then the port's bench, scaling report,
+staged through pinned host memory; with four cards a card each over NCCL)
+over the first 40 frames against single engines fed alike, every rank's
+band-slab sweep and resample calls of frame 10 held bit for bit against
+their plain versions and timed, the sharded TV-L1 and its gather against
+the single-device denoise and the joined tiles, each program's form
+printed and held (one graph under NCCL, segments between exchange points
+under gloo), and the CLI's ``run --mesh 2,1,2 --keyframes 2
+--propagate``. Then the port's bench, scaling report,
 profile scripts (640x480 and 752x480) and roofline, each through its
 ``main()`` at its defaults in a process of its own with the launch counts
 zeroed before and read after, the bench's accuracy held to the JAX engine's figures for the same
@@ -75,6 +78,11 @@ switch, the chunk, the captures and the graph pools.
 with ``git archive``) in a temporary directory, times both versions on the
 same inputs in turns (old, new, new, old), and profiles a replay with each.
 Imports nothing of JAX.
+
+``--mesh-only`` runs the card, build and device mesh phases alone and
+prints no result line: on a machine with four cards every layout
+runs a card a rank over NCCL, where each of the mesh's programs
+must be one CUDA graph with its collectives captured inside.
 
 Exits non-zero, printing no result, when CUDA is absent or any phase fails.
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
@@ -1110,58 +1118,65 @@ def propagation(torch, P, kept):
     return out
 
 
-FENCE_S = 0.002   # idle device time on either side of a fenced reseed
+def reseed_operations(torch, events, label):
+    """The device operations that each ``label`` range of a profiler trace
+    launched, one list of ``(name, ms)`` a range. The profiler gives every
+    kernel, copy and fill the correlation id of the host call that launched
+    it (a kernel launch, a copy, or for each kernel of a CUDA graph the
+    graph's launch); an operation is the range's when that call ran inside
+    the range. Only the host's clock is read: skew between the host's and
+    the device's clocks cannot move an operation into or out of a range."""
+    cuda = torch.autograd.DeviceType.CUDA
+    ranges = [e.time_range for e in events if e.name == label and e.device_type != cuda]
+    calls = {e.id: e.time_range.start for e in events
+             if e.device_type != cuda and e.name.startswith("cu")}
+    ops = [[] for _ in ranges]
+    for e in events:
+        if e.device_type == cuda and e.name != label and e.id in calls:
+            t = calls[e.id]
+            for i, r in enumerate(ranges):
+                if r.start <= t <= r.end:
+                    ops[i].append((e.name, (e.time_range.end - e.time_range.start) / 1e3))
+    return ops
 
 
 def profile_lifecycle(torch, P, fast):
     """Replay fast_motion_propagated under torch.profiler with each
-    propagated reseed in a ``PROP_LABEL`` range, fenced: the device is idle
-    for FENCE_S before the range opens and after it closes, and the range
-    ends with a synchronization. A device event counts as the reseed's when
-    it starts within FENCE_S / 2 of a range, which tolerates that much skew
-    between the host's and the device's clocks. Returns per-kernel device
-    ms and launches, in the reseeds and over the run, and the device
-    operations per switch."""
+    propagated reseed in a ``PROP_LABEL`` range; a device operation is the
+    reseed's when a host call inside the range launched it
+    (``reseed_operations``). Returns per-kernel device ms and launches, in
+    the reseeds and over the run, and the device operations per switch;
+    fails unless every reseed launched the warp once a chunk of planes."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    @contextlib.contextmanager
-    def fenced():
-        torch.cuda.synchronize()
-        time.sleep(FENCE_S)
-        with record_function(PROP_LABEL):
-            yield
-            torch.cuda.synchronize()
-        time.sleep(FENCE_S)
+    from rpg_open_remode_tpu_torch.ops import propagate
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        segment_row("fast_motion_propagated", None, fast, reseed_wrap=fenced)
+        segment_row("fast_motion_propagated", None, fast,
+                    reseed_wrap=lambda: record_function(PROP_LABEL))
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.events()
-    margin = FENCE_S / 2 * 1e6   # profiler times are in us
-    spans = [(e.time_range.start - margin, e.time_range.end + margin) for e in events
-             if e.name == PROP_LABEL and e.device_type != cuda]
-    dev = [e for e in events if e.device_type == cuda and e.name != PROP_LABEL]
-    inside = [e for e in dev if any(s <= e.time_range.start <= t for s, t in spans)]
+    dev = [(e.name, (e.time_range.end - e.time_range.start) / 1e3) for e in events
+           if e.device_type == cuda and e.name != PROP_LABEL]
+    spans = reseed_operations(torch, events, PROP_LABEL)
+    inside = [op for ops in spans for op in ops]
     out = dict(switches=len(spans), device_ops_per_switch=len(inside) / max(len(spans), 1),
                kernels={})
     for k, sym in KERNEL_SYMBOLS.items():
         row_k = {}
-        for where, evs in (("run", dev), ("reseeds", inside)):
-            mine = [e for e in evs if sym in e.name]
-            row_k[where] = dict(launches=len(mine), ms=sum(
-                e.time_range.end - e.time_range.start for e in mine) / 1e3)
+        for where, ops in (("run", dev), ("reseeds", inside)):
+            mine = [ms for name, ms in ops if sym in name]
+            row_k[where] = dict(launches=len(mine), ms=sum(mine))
         out["kernels"][k] = row_k
         log(f"  profile fast_motion_propagated: {k} {row_k['run']['ms']:.4f} ms over "
             f"{row_k['run']['launches']} launches, of which the {len(spans)} reseeds "
             f"{row_k['reseeds']['ms']:.4f} ms over {row_k['reseeds']['launches']}")
-    from rpg_open_remode_tpu_torch.ops import propagate
-
     per = -(-propagate.PLANES // propagate.WARP_CHUNK)
+    warps = [sum(KERNEL_SYMBOLS["warp"] in name for name, _ in ops) for ops in spans]
     log(f"  profile fast_motion_propagated: {out['device_ops_per_switch']:.1f} device "
-        f"operations per propagated reseed; the warp launched "
-        f"{out['kernels']['warp']['reseeds']['launches']} times in the reseeds (by "
-        f"construction {len(spans)} x {per})")
-    if out["kernels"]["warp"]["reseeds"]["launches"] != len(spans) * per:
+        f"operations per propagated reseed; the warp launched {warps} times in the "
+        f"{len(spans)} reseeds (by construction {per} each)")
+    if not spans or any(w != per for w in warps):
         raise AssertionError("the reseeds' warp launches are not one a chunk of planes")
     return out
 
@@ -1568,7 +1583,7 @@ def ring_phase(torch, P, kernels, frames640, run640):
 MESH_SHAPES = ((1, 1, 1), (1, 2, 2), (2, 1, 2))
 MESH_FRAMES = 40
 MESH_RESEED = 10         # kf = 2: slot 1 is reseeded on this frame, as the node's stagger
-MESH_DENOISE = (1, 2, 2)
+MESH_DENOISE = ((1, 2, 2), (2, 1, 2))   # the layouts that run the sharded TV-L1
 # conv agreement with the single-device engine: (1,1,1) runs the single
 # path's math; the bands add a halo and a band-local coarse gate, held as
 # the JAX package's own sharded rect path (tests/test_sharded.py:201)
@@ -1585,6 +1600,9 @@ MESH_MU_P99 = 0.02
 # the switch frames of the CLI's mesh run when its node ran eagerly (NVIDIA
 # H100 80GB HBM3 at 700 W): printed beside the replayed ones
 MESH_SWITCH_EAGER_MS = "1293.7-1647.7"
+# the limit of a switch frame's and the next frame's loop time: one frame
+# period at 30 fps (PERF.md section 2); printed against, not held
+FRAME_PERIOD_MS = 33.0
 MESH_MU_REL = 0.028
 MESH_MU_OVER = 5e-4
 # rank 0 of each layout replays the sequence's last frames again under the
@@ -1672,7 +1690,7 @@ def mesh_rank(mesh, io, frames, denoise):
     step = build_sharded_update(mesh, cam, cfg, h, w)
     reseed = build_sharded_reseed(mesh, cam, cfg, h, w)
     progs = ShardedPrograms(mesh, h, w, cam, (CAM_640["fx"], CAM_640["fy"]), cfg)
-    one_rank = mesh.size == 1
+    in_graph = mesh.size == 1 or mesh.backend == "nccl"
     # what the eager oracle's device regime stages a frame over gloo on a
     # kf = 2 mesh, which the replay does not: each local slot's int32 flag
     # out to pinned memory and back
@@ -1724,7 +1742,8 @@ def mesh_rank(mesh, io, frames, denoise):
             else:
                 T_host = progs.load_frame(frames[j][0], frames[j][1])
                 prog = progs.cache.get(("step", progs.dtype, progs.regime(T_host)))
-                debug = one_rank and prog is not None and prog.graph is not None
+                # one graph with its collectives inside: no host sync
+                debug = in_graph and prog is not None and prog.graph is not None
                 if debug:
                     torch.cuda.set_sync_debug_mode("error")
                 try:
@@ -1761,22 +1780,34 @@ def mesh_rank(mesh, io, frames, denoise):
     if denoise:
         run = build_sharded_denoise(mesh, cfg, h, w, iterations=cfg.denoise_iters)
         slots = list(range(len(states)))
-        den_ms = {}
+        den_ms, dev_ms = {}, []
         for which in ("eager", "first call", "replay", "replay"):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if which == "eager":
                 den = run(states, cfg.denoise_lambda)
             else:
+                progs.snapshot(slots)
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
                 got = progs.denoise(slots, cfg.denoise_lambda)
+                ev[1].record()
             torch.cuda.synchronize()
             den_ms.setdefault(which, []).append(1e3 * (time.perf_counter() - t0))
+            if which == "replay":
+                dev_ms.append(ev[0].elapsed_time(ev[1]))
         (dprog,) = [p for key, p in progs.cache.items() if key[0] == "denoise"]
         out.update(denoise=np.stack([d.cpu().numpy() for d in got]),
                    denoise_err=max(max_err(g, d) for g, d in zip(got, den)),
                    denoise_ms={k: min(v) for k, v in den_ms.items()},
+                   denoise_device_ms=min(dev_ms),
                    denoise_exchange_points=len(dprog.exchanges),
-                   denoise_capture_s=dprog.capture_s)
+                   denoise_capture_s=dprog.capture_s,
+                   # the leader's gathered slots: each slot's fields, then its denoised depth
+                   gathered=None if progs.gathered is None else progs.gathered.cpu().numpy())
+    # each program's form: (graphs, exchange points, collectives)
+    out["forms"] = {p.label: (len(p.graph), len(p.exchanges), len(p.signatures))
+                    for p in progs.captures()}
     # the replayed run again over the last frames (after every comparison
     # with the eager run), the counts zeroed just before: rank 0's trace
     # must hold the launches they add up to
@@ -1901,6 +1932,10 @@ def fmt_ms(xs):
     return f"median {np.median(xs):.3f} ms, p90 {np.percentile(xs, 90):.3f} ms"
 
 
+def fmt_max(x):
+    return "none" if x is None else f"{x:.1f}"
+
+
 def mesh_phase(torch, P, kernels, frames640):
     """The device mesh on the card: the sharded step at each MESH_SHAPES
     over the first MESH_FRAMES frames, replayed (the mesh's compiled
@@ -1909,12 +1944,16 @@ def mesh_phase(torch, P, kernels, frames640):
     the host regime and the device's; launches and staged bytes a frame),
     rank 0's profiled replay to the launch counts, and to the single
     engine; the kernel calls of the band slabs against their plain
-    versions, the sharded TV-L1 against the single-device one, and the CLI's ``run --mesh 2,1,2
-    --keyframes 2 --propagate``. Ranks are spawned processes sharing the
-    card (gloo collectives, staged through pinned host memory) or, for one
-    rank, NCCL."""
+    versions, the sharded TV-L1 against the single-device one and its
+    gather against the joined tiles, each program's form (one graph with
+    its collectives inside under NCCL and on one rank, segments between
+    exchange points under gloo), and the CLI's ``run --mesh 2,1,2
+    --keyframes 2 --propagate``. Ranks are spawned processes: with a card
+    each, NCCL; sharing one card, gloo collectives staged through pinned
+    host memory; one rank, NCCL."""
     from rpg_open_remode_tpu_torch.models.depthmap import denoise_depthmap
     from rpg_open_remode_tpu_torch.parallel import join_state_numpy, run_ranks
+    from rpg_open_remode_tpu_torch.parallel.programs import GATHERED
 
     frames = frames640[:MESH_FRAMES]
     feed = [(fr.image, Tcw(fr), gt_bounds(fr)) for fr in frames]
@@ -1926,7 +1965,7 @@ def mesh_phase(torch, P, kernels, frames640):
     bad = []
     for shape in MESH_SHAPES:
         t0 = time.perf_counter()
-        ranks = run_ranks(mesh_rank, shape, (feed, shape == MESH_DENOISE), device="cuda",
+        ranks = run_ranks(mesh_rank, shape, (feed, shape in MESH_DENOISE), device="cuda",
                           timeout=600)
         got = join_state_numpy([r["state"] for r in ranks], shape)
         n = len(ranks)
@@ -2009,33 +2048,65 @@ def mesh_phase(torch, P, kernels, frames640):
                     f"{c['bound'][0]:.4f} ms by {c['bound'][1]}, plain {c['plain_ms']:.4f} ms{lib}")
                 if c["max_abs_err"] != 0.0:
                     bad.append(f"{shape} rank {x['rank']} {c['name']} differs from its plain version")
-        if shape == MESH_DENOISE:
-            den = join_state_numpy([{"mu": x["denoise"]} for x in ranks], shape)["mu"][0]
-            st = P.state_from_numpy({k: v[0] if k != "scene" else {s: y[0] for s, y in v.items()}
-                                     for k, v in got.items()}, device=refs[0].device)
+        if shape in MESH_DENOISE:
+            den = join_state_numpy([{"mu": x["denoise"]} for x in ranks], shape)["mu"]
             cfg = refs[0].cfg
-            want = denoise_depthmap(st, cfg, lam=cfg.denoise_lambda,
-                                    iterations=cfg.denoise_iters).cpu().numpy()
-            err = np.abs(den - want)
-            ok = bool((err <= 1e-5 + 1e-4 * np.abs(want)).all())
+            err, ok, gathered_err = 0.0, True, 0.0
+            for k in range(shape[0]):
+                st = P.state_from_numpy({f: v[k] if f != "scene" else {
+                    s: y[k] for s, y in v.items()} for f, v in got.items()},
+                    device=refs[0].device)
+                want = denoise_depthmap(st, cfg, lam=cfg.denoise_lambda,
+                                        iterations=cfg.denoise_iters).cpu().numpy()
+                e = np.abs(den[k] - want)
+                err = max(err, float(e.max()))
+                ok = ok and bool((e <= 1e-5 + 1e-4 * np.abs(want)).all())
+                # the leader of slot k's row gathered the slot and its denoised depth
+                (lead,) = [x for x in ranks if x["gathered"] is not None
+                           and x["rank"] // (shape[1] * shape[2]) == k]
+                fields = np.stack([got[f][k].astype(np.float32) for f in GATHERED] + [den[k]])
+                gathered_err = max(gathered_err, float(np.abs(lead["gathered"][0] - fields).max()))
             rep_err = max(x["denoise_err"] for x in ranks)
             d_ms = {k: max(x["denoise_ms"][k] for x in ranks) for k in ranks[0]["denoise_ms"]}
             r["denoise"] = dict(ms=d_ms["replay"], eager_ms=d_ms["eager"],
-                                first_call_ms=d_ms["first call"], max_abs_err=float(err.max()),
-                                within=ok, replay_err=rep_err,
+                                device_ms=max(x["denoise_device_ms"] for x in ranks),
+                                first_call_ms=d_ms["first call"], max_abs_err=err,
+                                within=ok, replay_err=rep_err, gathered_err=gathered_err,
                                 exchange_points=ranks[0]["denoise_exchange_points"],
                                 capture_s=[x["denoise_capture_s"] for x in ranks])
             log(f"  mesh {shape} sharded TV-L1 ({cfg.denoise_iters} iterations, 1-px halos, "
-                f"plain PyTorch): replayed {d_ms['replay']:.1f} ms, eager {d_ms['eager']:.1f} ms, "
-                f"first call (eager warm-up and capture) {d_ms['first call']:.1f} ms (slowest "
-                f"rank); {r['denoise']['exchange_points']} exchange points, so "
+                f"plain PyTorch) and the gather to each row's leader: replayed "
+                f"{d_ms['replay']:.1f} ms host clock, {r['denoise']['device_ms']:.1f} ms CUDA "
+                f"events (slowest rank), eager {d_ms['eager']:.1f} ms, first call (eager "
+                f"warm-up and capture) {d_ms['first call']:.1f} ms; "
+                f"{r['denoise']['exchange_points']} exchange points, so "
                 f"{r['denoise']['exchange_points'] + 1} graph segments; capture "
                 f"{', '.join(f'{c or 0.0:.2f}' for c in r['denoise']['capture_s'])} s per rank; "
                 f"replayed against eager max err {rep_err:.3g}; against the single-device "
-                f"denoise max abs err {err.max():.3g} (rtol 1e-4, atol 1e-5: "
-                f"{'ok' if ok else 'OUTSIDE'})")
-            if not ok or rep_err != 0.0:
+                f"denoise max abs err {err:.3g} (rtol 1e-4, atol 1e-5: "
+                f"{'ok' if ok else 'OUTSIDE'}); gathered against the joined tiles max err "
+                f"{gathered_err:.3g}")
+            if not ok or rep_err != 0.0 or gathered_err != 0.0:
                 bad.append(f"{shape} denoise")
+        # each program's form: one graph with no exchange point under NCCL
+        # and on one rank; segments between exchange points under gloo
+        forms = [x["forms"] for x in ranks]
+        r["forms"] = forms
+        log(f"  mesh {shape}: program forms (graphs, exchange points, collectives inside or "
+            f"between them), rank 0: "
+            + "; ".join(f"{lab} {f}" for lab, f in forms[0].items())
+            + ("" if n == 1 else "; other ranks: "
+               + " | ".join(", ".join(f"{lab} {f}" for lab, f in x.items()) for x in forms[1:])))
+        labels = {str(sorted(x)) for x in forms}
+        if r["backend"] == "nccl" or n == 1:
+            one_graph = all(f[:2] == (1, 0) for x in forms for f in x.values())
+            if not one_graph or len(labels) != 1:
+                bad.append(f"{shape}: not every program is one graph with no exchange point on "
+                           f"every rank: {forms}")
+        elif not all(f[1] > 0 and f[0] == f[1] + 1 for x in forms for lab, f in x.items()
+                     if lab.startswith(("step", "denoise"))):
+            bad.append(f"{shape}: the gloo step and denoise programs are not segments between "
+                       f"exchange points: {forms}")
         caps = [f"{max(c.values()):.3f}" for c in r["captures"] if c] or ["none"]
         log(f"  mesh {shape}: {n} rank(s), backend {r['backend']}, devices {r['devices']}; "
             f"sharded step per frame (rank 0, host clock, synchronized, in turns) replayed "
@@ -2044,10 +2115,10 @@ def mesh_phase(torch, P, kernels, frames640):
             f"{', '.join(caps)} s; graph pool {', '.join(f'{m:.1f}' for m in r['pool_mib'])} "
             f"MiB per rank; staged {r['staged_bytes_per_frame'] / 1e6:.3f} MB per frame over all "
             f"ranks; replayed launches per rank {r['launches']}; {r['seconds']:.1f} s")
-        if shape == (1, 1, 1):
+        if shape == (1, 1, 1) or r["backend"] == "nccl":
             log(f"  mesh {shape}: {r['debug_frames']} replayed frames under "
                 f"set_sync_debug_mode('error'): no host synchronization")
-            if r["debug_frames"] < MESH_FRAMES - 3 or r["graphs"] != [1]:
+            if r["debug_frames"] < MESH_FRAMES - 3 or r["graphs"] != [1] * len(r["graphs"]):
                 bad.append(f"{shape}: {r['debug_frames']} frames under sync debug, graphs "
                            f"{r['graphs']}")
         missing = [(i, k) for i, x in enumerate(r["launches"]) for k in ("sweep", "warp")
@@ -2079,23 +2150,38 @@ def mesh_cli(torch, kernels):
         wall = time.perf_counter() - t0
         files = sorted(p.name for p in out_dir.iterdir())
     n_kf = len(res.keyframes)
+    # the switch frames that replayed every program, and the frames after them
+    replayed = [(ms, x["after_switch_ms"][i] if i < len(x["after_switch_ms"]) else None)
+                for x in res.ranks for i, ms in enumerate(x["switch_ms"])
+                if not x["switch_first_call"][i]]
     r = dict(wall_s=wall, keyframes=n_kf, switches=res.switches,
              launches=[x["launches"] for x in res.ranks],
              frame_ms_median=float(np.median(res.ranks[0]["frame_ms"])),
              frame_ms_p90=float(np.percentile(res.ranks[0]["frame_ms"], 90)),
              frame_ms_max=max(max(x["frame_ms"]) for x in res.ranks),
              switch_ms=[x["switch_ms"] for x in res.ranks],
+             after_switch_ms=[x["after_switch_ms"] for x in res.ranks],
+             switch_first_call=[x["switch_first_call"] for x in res.ranks],
+             replayed_switch_ms_max=max((a for a, _ in replayed), default=None),
+             replayed_after_switch_ms_max=max((b for _, b in replayed if b is not None),
+                                              default=None),
              staged_bytes=[x["staged"]["bytes"] for x in res.ranks],
              converged_pct=[k.converged_percentage for k in res.keyframes])
     for x in res.ranks:
-        sw = ", ".join(f"{t:.1f}" for t in x["switch_ms"])
+        sw = ", ".join(f"{t:.1f}" + (" (first call)" if first else "")
+                       for t, first in zip(x["switch_ms"], x["switch_first_call"]))
+        nxt = ", ".join(f"{t:.1f}" for t in x["after_switch_ms"])
         log(f"    rank {x['rank']} ({x['device']}, {x['backend']}): launches {x['launches']}, "
             f"{x['keyframes']} keyframes exported, staged {x['staged']['bytes'] / 1e6:.1f} MB; "
-            f"frames that finalized a keyframe (the sharded TV-L1 and the gather on the "
-            f"loop's thread, replayed) {sw} ms (the eager node's: {MESH_SWITCH_EAGER_MS} ms)")
+            f"the loop's ms on the frames that finalized a keyframe (snapshot, reseeds, the "
+            f"sharded TV-L1 and the gather, replayed) {sw}; on the frame after each {nxt} (an "
+            f"eager node's switch frame: {MESH_SWITCH_EAGER_MS} ms)")
     log(f"  the CLI's mesh run: {n_kf} keyframes, switches {res.switches}, {wall:.1f} s; per "
         f"frame median {r['frame_ms_median']:.3f} ms, p90 {r['frame_ms_p90']:.3f} ms (rank 0), "
-        f"max {r['frame_ms_max']:.1f} ms (any rank)")
+        f"max {r['frame_ms_max']:.1f} ms (any rank); the switch frames with no first call, "
+        f"max {fmt_max(r['replayed_switch_ms_max'])} ms, the frames after them max "
+        f"{fmt_max(r['replayed_after_switch_ms_max'])} ms (one frame period: "
+        f"{FRAME_PERIOD_MS} ms)")
     want = {f"kf_{i:03d}{s}" for i in range(n_kf) for s in ("_depth.npy", "_cloud.ply",
                                                             "_convergence.png")}
     problems = []
@@ -3065,6 +3151,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write the measurements to this JSON file")
     parser.add_argument("--baseline", help="a checkout whose kernels to time beside these")
+    parser.add_argument("--mesh-only", action="store_true",
+                        help="run only the device mesh phase (with four cards: a card a rank, "
+                             "NCCL) and print no result line")
     parser.add_argument("--script", choices=SCRIPTS, help=argparse.SUPPRESS)
     parser.add_argument("--script-out", help=argparse.SUPPRESS)
     opts = parser.parse_args()
@@ -3094,6 +3183,16 @@ def main() -> int:
     phase("build")
     kernels.library()
     log(f"kernels built and loaded in {kernels.build_seconds:.2f} s")
+
+    if opts.mesh_only:
+        phase(f"the device mesh alone ({torch.cuda.device_count()} card(s))")
+        mesh = mesh_phase(torch, P, kernels, make_frames(640, 480, CAM_640, MESH_FRAMES))
+        log(f"== total {time.perf_counter() - t_start:.1f} s")
+        if opts.out:
+            with open(opts.out, "w") as f:
+                json.dump(json.loads(json.dumps(dict(card=smi, mesh=mesh), default=float)), f,
+                          indent=1)
+        return 0
 
     phase("kernel parity (numpy-seeded, ragged-band and edge-case inputs, main-path shapes)")
     errs = kernel_parity(torch, dev, P, MAIN_SIZES)

@@ -248,20 +248,26 @@ def _mesh_rank(mesh, io, geom, opts):
     node = ShardedDepthmapNode(mesh, width, height, fx=fx, cx=cx, fy=fy, cy=cy,
                                n_keyframes=opts["keyframes"] if opts["keyframes"] > 1 else None,
                                cfg=cfg, on_keyframe=ship)
-    frame_s, switch_s = [], []
+    frame_s, switch_at, first_calls = [], [], []
     for name, img, T_cw, bounds in io.inputs():
+        captured = len(node.programs.captures())
         t0 = time.perf_counter()
         stats = node.process_frame(img, T_cw, *bounds)
         frame_s.append(time.perf_counter() - t0)
         if stats.get("event") == "keyframe_complete":
-            switch_s.append(frame_s[-1])
+            switch_at.append(len(frame_s) - 1)
+            # a program's first call (its warm-up and capture) ran in it
+            first_calls.append(len(node.programs.captures()) > captured)
         if mesh.rank == 0:
             _print_stats(opts["verbose"], name, stats)
     node.close()
     return dict(rank=mesh.rank, device=str(mesh.device), backend=mesh.backend,
                 launches=dict(kernels.LAUNCHES), keyframes=len(node.keyframes),
                 switches=node.switches, staged=dict(mesh.staged), frames=len(frame_s),
-                frame_ms=[1e3 * t for t in frame_s], switch_ms=[1e3 * t for t in switch_s])
+                frame_ms=[1e3 * t for t in frame_s],
+                switch_ms=[1e3 * frame_s[i] for i in switch_at], switch_first_call=first_calls,
+                # the frame after each switch: its regime read waits for the reseeds
+                after_switch_ms=[1e3 * frame_s[i + 1] for i in switch_at if i + 1 < len(frame_s)])
 
 
 def _run_mesh(args, frames, geom, export):

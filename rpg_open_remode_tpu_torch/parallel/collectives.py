@@ -17,16 +17,26 @@ copies are explicit and counted in ``mesh.staged``; the compute stays on the
 card. A group of one rank is no collective at all.
 
 Inside a compiled program of the mesh
-(``parallel/programs.SegmentedProgram``) each collective is an exchange
-point between two graph segments, never captured: the program's first
-call creates one ``Exchange`` per collective it meets, with static send
-and receive buffers (pinned host memory where gloo stages a CUDA
-tensor, else on the rank's device). Each call then copies the input into
-the send buffer, ends the segment (while capturing) or runs the collective
-on the static buffers (the host waits for the copy first), and copies the
-receive buffer into the tensor it returns at the head of the next segment.
-A replay runs the segments with each ``Exchange.run`` between them and
-adds its staged copies to ``mesh.staged`` as the eager call would.
+(``parallel/programs.SegmentedProgram``) the backend decides the form, as
+``mesh.backend`` alone says:
+
+  * NCCL (a card per rank): the collective runs inline on the current
+    stream, as outside a program, so the capture takes it into the graph
+    with the body (the JAX ``shard_map`` programs' form): a program is one
+    graph, replayed with no host work between its parts. The program holds
+    the body's collectives to the warm-up's, in order.
+  * gloo (ranks sharing a card, or CPU ranks), which cannot be captured:
+    each collective is an exchange point between two graph segments. The
+    program's first call creates one ``Exchange`` per collective it meets,
+    with static send and receive buffers (pinned host memory where gloo
+    stages a CUDA tensor, else on the rank's device). Each call then copies
+    the input into the send buffer, ends the segment (while capturing) or
+    runs the collective on the static buffers (the host waits for the copy
+    first), and copies the receive buffer into the tensor it returns at the
+    head of the next segment. A replay runs the segments with each
+    ``Exchange.run`` between them and adds its staged copies to
+    ``mesh.staged`` as the eager call would.
+
 Outside a program the collectives run as described above.
 """
 
@@ -81,9 +91,10 @@ def from_wire(mesh, t: torch.Tensor) -> torch.Tensor:
 
 @contextlib.contextmanager
 def exchange_points(program):
-    """Route this thread's collectives through ``program``'s exchange points
-    (``program.exchange_point(signature, make)`` returns the point;
-    ``program.exchange_boundary(point)`` ends a segment or runs it)."""
+    """Route this thread's collectives through ``program``: each is held to
+    the warm-up's (``program.collective(signature)``); under gloo
+    ``program.exchange_point(signature, make)`` returns its point and
+    ``program.exchange_boundary(point)`` ends a segment or runs it."""
     saved = getattr(_program, "current", None)
     _program.current = program
     try:
@@ -139,18 +150,21 @@ class Exchange:
 
 
 def _collect(mesh, kind: str, axis: str, sends: list, recv_likes, call) -> list:
-    """Run collective ``call(send_wires, recv_wires)`` on ``sends``: eagerly,
-    or through the exchange point of the program this thread runs. Returns
-    the received tensors on the rank's device."""
+    """Run collective ``call(send_wires, recv_wires)`` on ``sends``: eagerly
+    (inline in the program this thread runs, under NCCL), or through the
+    program's exchange point (under gloo). Returns the received tensors on
+    the rank's device."""
     program = getattr(_program, "current", None)
-    if program is None:
+    signature = (kind, axis, tuple((tuple(t.shape), t.dtype) for t in sends),
+                 None if recv_likes is None else tuple(recv_likes))
+    if program is None or mesh.backend == "nccl":
+        if program is not None:
+            program.collective(signature)
         wires = [to_wire(mesh, t) for t in sends]
         recv = wires if recv_likes is None else [
             torch.empty(shape, dtype=dtype, device=wires[0].device) for shape, dtype in recv_likes]
         call(wires, recv)
         return [from_wire(mesh, t) for t in recv]
-    signature = (kind, axis, tuple((tuple(t.shape), t.dtype) for t in sends),
-                 None if recv_likes is None else tuple(recv_likes))
     point = program.exchange_point(
         signature, lambda: Exchange(mesh, signature, sends, recv_likes, call))
     point.stage_in(sends)

@@ -17,6 +17,7 @@ before the ranks start, so that the ranks do not each compile them.
 
 from __future__ import annotations
 
+import gc
 import multiprocessing
 import os
 import queue
@@ -81,6 +82,12 @@ def _rank_main(fn, args, shape, rank, local_index, local_ranks, hosts, device_ty
         raise
     finally:
         if dist.is_initialized():
+            # a CUDA graph that captured NCCL calls holds their communicator,
+            # and NCCL's destroy waits until every such graph is gone: free
+            # the programs fn left behind first
+            if device_type == "cuda":
+                torch.cuda.synchronize()
+            gc.collect()
             dist.destroy_process_group()
 
 

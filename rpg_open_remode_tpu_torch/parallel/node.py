@@ -15,15 +15,20 @@ order.
 
 Every step, reseed and TV-L1 is a replay of the mesh's compiled programs
 (``parallel/programs.ShardedPrograms``), which hold the local slots in
-fixed buffers: a reseed overwrites its slot. Finalizing a slot: its kf
-row's ranks run the sharded TV-L1 on the slot's buffers, then gather the
-slot's tiles and its denoised tiles to the row's spatial leader, on the
-loop's thread and in slot order (so the gathers never interleave with a
-step's collectives), all in stream order before the slot's reseed replays.
-Only the leader's worker thread assembles the ``KeyframeResult`` (from the
-gathered copy, the keyframe pose and scene cloned before the reseed) and
-calls ``on_keyframe``. Keyframes are numbered per host in the order the
-policy finalizes them (``KeyframeResult.index``), which every rank knows.
+fixed buffers: a reseed overwrites its slot. Finalizing slots, on the
+loop's thread and as JAX ``_finalize_slots`` does it, nothing waits: the
+kf row's ranks copy the slots into their snapshots, every rank reseeds
+them in slot order, then the kf row's ranks replay the denoise program on
+the snapshots (the sharded TV-L1 and the gather of each slot's tiles and
+denoised tiles to the row's spatial leader), all in stream order, so the
+next frame's regime read waits for the reseeds only. Under NCCL each of
+these is one graph replay; under gloo the host runs the programs'
+exchanges. The leader starts a copy of each gathered keyframe to host
+memory behind an event; only its worker thread waits on that event, then
+assembles the ``KeyframeResult`` (host tensors: the gathered fields, the
+snapshot's keyframe pose and scene) and calls ``on_keyframe``. Keyframes
+are numbered per host in the order the policy finalizes them
+(``KeyframeResult.index``), which every rank knows.
 """
 
 from __future__ import annotations
@@ -32,16 +37,11 @@ import torch
 
 from rpg_open_remode_tpu_torch.config import ConvergenceState, RemodeConfig
 from rpg_open_remode_tpu_torch.models.node import KeyframeResult, LifecycleNode, _fetch
-from rpg_open_remode_tpu_torch.models.state import SeedState, clone_scene
-from rpg_open_remode_tpu_torch.parallel.distributed import gather_kf_slot
-from rpg_open_remode_tpu_torch.parallel.programs import ShardedPrograms
+from rpg_open_remode_tpu_torch.models.state import SeedState
+from rpg_open_remode_tpu_torch.parallel.programs import GATHERED, ShardedPrograms
 from rpg_open_remode_tpu_torch.parallel.sharded import SHARDED_PACKED_KEYS
 from rpg_open_remode_tpu_torch.utils import se3
 from rpg_open_remode_tpu_torch.utils.camera import PinholeCamera
-
-# the image fields a finalization gathers, in this order
-_GATHERED = ("ref_img", "sum_templ", "const_templ_denom", "mu", "sigma_sq", "a", "b", "conv",
-             "match_u", "match_v")
 
 
 class ShardedDepthmapNode(LifecycleNode):
@@ -73,7 +73,8 @@ class ShardedDepthmapNode(LifecycleNode):
 
         self.programs = ShardedPrograms(mesh, height, width, self.cam, (fx, fy), self.cfg,
                                         self.n)
-        self._f_ref = self.cam.bearing_grid(height, width) if mesh.axis_index("sp") == 0 else None
+        self._f_ref = (self.cam.bearing_grid(height, width).cpu() if self.programs.leader
+                       else None)
 
         self.num_msgs = 0
         self._n_updates = [0] * self.n
@@ -157,29 +158,25 @@ class ShardedDepthmapNode(LifecycleNode):
     # -- slot lifecycle --------------------------------------------------------
 
     def _finalize_slots(self, slots, n_upds, frame_no: int) -> None:
-        # the finalizing slots are denoised from their buffers before any
-        # of them is reseeded (the stream orders them so)
+        # the finalizing slots are copied before any of them is reseeded,
+        # and denoised from the copies after the reseeds (the stream orders
+        # them so)
         mine = [s for s in slots if self._local(s) is not None]
-        den = {}
-        if mine:
-            tiles = self.programs.denoise([self._local(s) for s in mine], self.cfg.denoise_lambda)
-            den = dict(zip(mine, tiles))
+        self.programs.snapshot([self._local(s) for s in mine])
+        indices = {}
         for slot in slots:
-            leader = (slot // self.n_local) * self.mesh.axis_size("sp")
-            host = self.mesh.host_of(leader)
-            index = self._exports_by_host[host]
+            host = self.mesh.host_of((slot // self.n_local) * self.mesh.axis_size("sp"))
+            indices[slot] = self._exports_by_host[host]
             self._exports_by_host[host] += 1
             self.switches.append((frame_no, slot))
-            if slot in mine:
-                st = self.programs.states[self._local(slot)]
-                fields = [getattr(st, f).float() for f in _GATHERED] + [den[slot]]
-                full = gather_kf_slot(self.mesh, torch.stack(fields))
-                if full is not None:
-                    # copies: the worker reads them after the reseed below
-                    # overwrote the slot's buffers
-                    self._submit(self._export, st.T_world_ref.clone(), clone_scene(st.scene),
-                                 full, n_upds[slot], index)
             self._reseed_slot(slot)
+        if not mine:
+            return
+        self.programs.denoise([self._local(s) for s in mine], self.cfg.denoise_lambda)
+        if self.programs.leader:
+            for slot in mine:
+                self._submit(self._export, *self.programs.export(self._local(slot)),
+                             n_upds[slot], indices[slot])
 
     def _reseed_program(self, slot: int) -> None:
         """The reseed of ``slot`` from the loaded frame, at the inverse of
@@ -192,18 +189,19 @@ class ShardedDepthmapNode(LifecycleNode):
         self._generation[slot] += 1
         self._n_updates[slot] = 0
 
-    def _export(self, T_world_ref, scene, full: torch.Tensor, n_updates: int,
-                index: int) -> None:
-        """On the leader's worker thread: the gathered keyframe as a
-        ``KeyframeResult`` (``full``: the ``_GATHERED`` fields, then the
-        denoised depth, each ``[H, W]``), kept and handed over."""
-        leaves = dict(zip(_GATHERED, full))
+    def _export(self, host: torch.Tensor, event, n_updates: int, index: int) -> None:
+        """On the leader's worker thread: once ``event`` has passed, the
+        gathered keyframe (``ShardedPrograms.export``'s host copy) as a
+        ``KeyframeResult`` on the host, kept and handed over."""
+        if event is not None:
+            event.synchronize()
+        full, T_world_ref, scene = self.programs.unpack(host)
+        leaves = dict(zip(GATHERED, full))
         leaves["conv"] = leaves["conv"].to(torch.int32)
         state = SeedState(f_ref=self._f_ref, T_world_ref=T_world_ref, scene=scene, **leaves)
-        denoised = full[len(_GATHERED)]
         # exact converged% at snapshot time (the policy's lags a stride)
         exact_pct = 100.0 * float((state.conv == int(ConvergenceState.CONVERGED)).float().mean())
-        result = KeyframeResult(state=state, denoised_depth=denoised.cpu().numpy(),
+        result = KeyframeResult(state=state, denoised_depth=full[len(GATHERED)].numpy(),
                                 converged_percentage=exact_pct, n_updates=n_updates, index=index)
         self.keyframes.append(result)
         if self.on_keyframe is not None:

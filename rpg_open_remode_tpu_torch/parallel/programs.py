@@ -1,23 +1,27 @@
 """The mesh's compiled programs (counterpart of the three ``jax.jit``
 wrappers of ``rpg_open_remode_tpu/parallel/sharded.py``: the sharded step,
 :225, the sharded TV-L1, :320, and the sharded reseed, :490): each captured
-once per rank as CUDA graphs and replayed after, as ``models/programs.py``
+once per rank as a CUDA graph and replayed after, as ``models/programs.py``
 does for the single engine.
 
   * ``ShardedPrograms`` owns the rank's local slots' tile states in fixed
-    buffers (``states``), the static inputs (the frame, its pose, the scene
-    bounds and a keyframe pose), a static ``[KF, 6]`` packed output
-    (``packed``, the step's metrics matrix) and static denoised tiles
-    (``denoised``), with a cache of ``SegmentedProgram``s keyed by the
+    buffers (``states``), their snapshots (``snaps``, what a finalization
+    reads), the static inputs (the frame, its pose, the scene bounds and a
+    keyframe pose), a static ``[KF, 6]`` packed output (``packed``, the
+    step's metrics matrix), static denoised tiles (``denoised``) and, on a
+    kf row's spatial leader, each local slot's gathered keyframe
+    (``gathered``), with a cache of ``SegmentedProgram``s keyed by the
     step's (input dtype, regime), the reseed's (input dtype, slot) and the
     denoise's (local slots, lambda).
-  * A collective is an exchange point between graph segments, never
-    captured (``parallel/collectives.Exchange``): gloo cannot be captured,
-    and NCCL capture needs a card per rank. A ``SegmentedProgram`` (a
-    ``models/programs.Program``) captures its body as one graph per
-    segment, and a replay runs the segments with the exchanges between
-    them on the host. A one-rank world has no exchange, so at (1, 1, 1)
-    each program is one graph and one replay.
+  * The form of a program follows the mesh's backend
+    (``parallel/collectives.py``). Under NCCL (a card per rank) its
+    collectives are captured with the body: each program is one graph and a
+    replay one launch, as each JAX program is one ``jax.jit`` of a
+    ``shard_map``. Under gloo (ranks sharing a card, or CPU ranks), which
+    cannot be captured, each collective is an exchange point between graph
+    segments (``collectives.Exchange``), and a replay runs the segments
+    with the exchanges between them on the host. A one-rank world has no
+    collective, so at (1, 1, 1) each program is one graph either way.
   * The step's regime is chosen on the host (``sharded.sharded_regime``)
     from host copies of every global slot's keyframe pose and mean depth.
     Every rank reseeds every slot alike (the node calls the reseed on every
@@ -25,11 +29,20 @@ does for the single engine.
     also on the ranks that do not hold the slot, writes the slot's row of a
     small device table (``refs``), copied to the host behind an event and
     read at the next step: every rank chooses the same regime and so runs
-    the same exchanges. The band's coarse gate stays on the device
+    the same collectives. The band's coarse gate stays on the device
     (``parallel/rect_sharded.py``).
+  * A finalization copies the slots into their snapshots (``snapshot``),
+    so the reseeds that follow do not wait for the TV-L1: the denoise
+    program reads the snapshots, after the reseeds in stream order, and
+    gathers each slot's fields and denoised depth to the spatial leader in
+    the same program. The regime's host copy is recorded after the reseeds,
+    so the next frame's read waits for them and not for the TV-L1.
   * Every rank must call the same programs in the same order: a program's
     first call runs its body eagerly with its real collectives (the call's
-    result) before the capture.
+    result) before the capture. Under NCCL a graph holds the communicators
+    it captured, and destroying the process group waits until every such
+    graph is freed: drop the programs first (``launch`` collects them
+    before it destroys the group).
 
 The eager ``build_sharded_*`` functions of ``parallel/sharded.py`` are the
 captured bodies and the oracle the replays are held against.
@@ -38,53 +51,73 @@ captured bodies and the oracle the replays are held against.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import torch
 
 from rpg_open_remode_tpu_torch.config import RemodeConfig
+from rpg_open_remode_tpu_torch.models.node import _fetch
 from rpg_open_remode_tpu_torch.models.programs import Inputs, Program, pool_bytes
 from rpg_open_remode_tpu_torch.models.state import SceneParams, clone, copy_into, empty_state
 from rpg_open_remode_tpu_torch.parallel import collectives
+from rpg_open_remode_tpu_torch.parallel.distributed import gather_kf_slot
 from rpg_open_remode_tpu_torch.parallel.sharded import (
     SHARDED_PACKED_KEYS, build_sharded_denoise, build_sharded_reseed, build_sharded_update,
     shard_state, sharded_regime, tile_state,
 )
 from rpg_open_remode_tpu_torch.utils.camera import PinholeCamera
 
+# the image fields a finalization gathers, in this order (then the denoised
+# depth)
+GATHERED = ("ref_img", "sum_templ", "const_templ_denom", "mu", "sigma_sq", "a", "b", "conv",
+            "match_u", "match_v")
+_SCENE = tuple(f.name for f in dataclasses.fields(SceneParams))
+
 
 class SegmentedProgram(Program):
-    """A ``Program`` whose body runs collectives, each an exchange point
-    (``collectives.Exchange``) between two graph segments. The warm-up
-    makes one per collective it meets, with its static buffers; the capture
-    ends a segment at each, so ``graph`` is the list of segment graphs; a
-    replay runs each exchange between its segments, on the host. A body
-    with no collective captures as one segment. Every run must meet the
-    warm-up's exchange points in its order, or it raises."""
+    """A ``Program`` whose body runs collectives. Under NCCL each runs inline
+    and is captured with the body, so ``graph`` is one segment and a replay
+    one graph launch. Under gloo each is an exchange point
+    (``collectives.Exchange``) between two graph segments: the warm-up makes
+    one per collective it meets, with its static buffers; the capture ends
+    a segment at each, so ``graph`` is the list of segment graphs; a replay
+    runs each exchange between its segments, on the host. A body with no
+    collective captures as one segment. Every run must meet the warm-up's
+    collectives (``signatures``) in its order, or it raises."""
 
     def __init__(self, body, device: torch.device, pool, label: str):
         super().__init__(body, device, pool, label)
-        self.exchanges: list = []     # the exchange points, in order
+        self.signatures: list = []    # every collective of the body, in order
+        self.exchanges: list = []     # the exchange points (gloo), in order
         self._segments = None         # the graphs captured so far, while capturing
-        self._met = 0                 # exchange points met in this run of the body
+        self._met = 0                 # collectives met in this run of the body
+        self._held = False            # the warm-up has run: hold later runs to it
 
     # -- called by parallel/collectives -------------------------------------------
 
-    def exchange_point(self, signature, make):
-        """The next exchange point of this run of the body: made by
-        ``make()`` on the first run, then held to its ``signature``."""
+    def collective(self, signature) -> int:
+        """The index of the body's next collective: recorded on the first
+        run, then held to its ``signature``."""
         i = self._met
         self._met += 1
+        if i == len(self.signatures):
+            if self._held:
+                raise RuntimeError(f"{self.label}: collective {i} {signature} is one the "
+                                   "warm-up did not meet")
+            self.signatures.append(signature)
+        if self.signatures[i] != signature:
+            raise RuntimeError(f"{self.label}: collective {i} is {signature}, "
+                               f"was {self.signatures[i]}")
+        return i
+
+    def exchange_point(self, signature, make):
+        """The exchange point of the body's next collective: made by
+        ``make()`` on the first run, then held to its ``signature``."""
+        i = self.collective(signature)
         if i == len(self.exchanges):
-            if self._segments is not None:
-                raise RuntimeError(f"{self.label}: the capture met an exchange point "
-                                   "the warm-up did not")
             self.exchanges.append(make())
-        point = self.exchanges[i]
-        if point.signature != signature:
-            raise RuntimeError(f"{self.label}: exchange point {i} is {signature}, "
-                               f"was {point.signature}")
-        return point
+        return self.exchanges[i]
 
     def exchange_boundary(self, point) -> None:
         """While capturing: end this segment and begin the next. Otherwise:
@@ -106,9 +139,10 @@ class SegmentedProgram(Program):
         self._met = 0
         with collectives.exchange_points(self):
             self.body()
-        if self._met != len(self.exchanges):
-            raise RuntimeError(f"{self.label}: {self._met} exchange points, the warm-up "
-                               f"met {len(self.exchanges)}")
+        if self._met != len(self.signatures):
+            raise RuntimeError(f"{self.label}: {self._met} collectives, the warm-up "
+                               f"met {len(self.signatures)}")
+        self._held = True
 
     def _run(self) -> None:
         self._through_exchanges()
@@ -159,10 +193,14 @@ class ShardedPrograms:
         empty = tile_state(empty_state(height, width, cam), mesh)
         # one buffer per leaf of every local slot
         self.states = [clone(empty) for _ in range(self.n_local)]
+        self.snaps = [clone(empty) for _ in range(self.n_local)]
         _, _, th, tw = mesh.tile(height, width)
         self.packed = torch.zeros((self.n, len(SHARDED_PACKED_KEYS)), dtype=torch.float32,
                                   device=dev)
         self.denoised = torch.zeros((self.n_local, th, tw), dtype=torch.float32, device=dev)
+        self.leader = mesh.axis_index("sp") == 0
+        self.gathered = torch.zeros((self.n_local, len(GATHERED) + 1, height, width),
+                                    dtype=torch.float32, device=dev) if self.leader else None
         # every global slot's T_world_ref (12) and scene.avg_depth (1)
         self.refs = torch.cat([empty.T_world_ref.reshape(-1),
                                empty.scene.avg_depth.reshape(1)]).repeat(self.n, 1)
@@ -237,9 +275,20 @@ class ShardedPrograms:
 
     def _denoise(self, slots: tuple, lam: float):
         def body():
-            for i, u in zip(slots, self._denoise_fn(self.states, lam, list(slots))):
-                self.denoised[i].copy_(u)
+            self.finalize(self.snaps, slots, lam)
         return body
+
+    def finalize(self, snaps, slots, lam: float) -> None:
+        """The sharded TV-L1 of local slots ``slots`` of ``snaps`` into
+        ``denoised``, then each slot's ``GATHERED`` fields and denoised
+        depth gathered into ``gathered`` on the spatial leader (the denoise
+        program's body)."""
+        for i, u in zip(slots, self._denoise_fn(snaps, lam, list(slots))):
+            self.denoised[i].copy_(u)
+            fields = [getattr(snaps[i], f).float() for f in GATHERED] + [u]
+            full = gather_kf_slot(self.mesh, torch.stack(fields))
+            if full is not None:
+                self.gathered[i].copy_(full)
 
     # -- what the node calls -------------------------------------------------------
 
@@ -271,12 +320,39 @@ class ShardedPrograms:
         self.program(("reseed", self.dtype, slot))()
         self._refresh_host()
 
+    def snapshot(self, slots) -> None:
+        """Copy local slots ``slots`` into their snapshots (``snaps``), which
+        the denoise program reads; the slots may then be reseeded."""
+        for i in slots:
+            copy_into(self.snaps[i], self.states[i])
+
     def denoise(self, slots, lam: float) -> list[torch.Tensor]:
-        """The sharded TV-L1 of local slots ``slots``: views of ``denoised``,
-        valid until the next denoise; every rank of the kf row calls it
-        alike."""
+        """The sharded TV-L1 of the snapshots of local slots ``slots``, with
+        each slot gathered to the spatial leader (``gathered``): views of
+        ``denoised``, valid until the next denoise; every rank of the kf row
+        calls it alike."""
         self.program(("denoise", tuple(slots), float(lam)))()
         return [self.denoised[i] for i in slots]
+
+    def export(self, i: int):
+        """On the spatial leader, after ``denoise``: start the copy of local
+        slot ``i``'s gathered keyframe and its snapshot's keyframe pose and
+        scene to host memory. Returns ``(host, event)`` (``_fetch``) for
+        ``unpack``; the event None when the copy is complete."""
+        snap = self.snaps[i]
+        meta = torch.cat([snap.T_world_ref.reshape(-1)]
+                         + [getattr(snap.scene, f).reshape(1) for f in _SCENE])
+        return _fetch(torch.cat([self.gathered[i].reshape(-1), meta]))
+
+    def unpack(self, host: torch.Tensor):
+        """``export``'s host copy as ``(fields, T_world_ref, scene)``:
+        ``fields`` the ``GATHERED`` fields, then the denoised depth, each
+        ``[H, W]``."""
+        n = (len(GATHERED) + 1) * self.height * self.width
+        fields = host[:n].reshape(len(GATHERED) + 1, self.height, self.width)
+        meta = host[n:]
+        scene = SceneParams(**{f: meta[12 + k] for k, f in enumerate(_SCENE)})
+        return fields, meta[:12].reshape(3, 4), scene
 
     def stats(self) -> dict:
         """The last step's stats as the eager step returns them, from a copy

@@ -148,10 +148,19 @@ def test_programs_reseed_matches_eager(start, runs, shape, kind):
 
 @pytest.mark.parametrize("shape", SHAPES)
 def test_programs_denoise_matches_eager(runs, shape):
+    """The TV-L1 of the snapshots, and on each spatial leader what the
+    program gathered: the eager gather of the slots' fields and denoised
+    tiles."""
+    leaders = 0
     for rank in runs[shape]:
         r = rank["reseed"]["denoise"]
         for got in r["programs"]:
             np.testing.assert_array_equal(got, r["eager"])
+        assert len(r["gathered"]) == (0 if r["eager_gathered"] is None else 2)
+        for got in r["gathered"]:
+            np.testing.assert_array_equal(got, r["eager_gathered"])
+            leaders += 1
+    assert leaders == 2 * shape[0]
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -170,9 +179,10 @@ def test_exchange_points_equal_on_every_rank(runs, shape):
         assert {"all_gather", "all_reduce", "permute"} <= kinds, kinds
     if shape == (1, 2, 2):
         # the TV-L1 of both local slots: three 2-D halo exchanges an
-        # iteration, each x then y
+        # iteration, each x then y; then each slot gathered to the leader
         (den,) = [s for label, s in seqs[0].items() if label.startswith("denoise")]
-        assert den == [("permute", "tx"), ("permute", "ty")] * 3 * CFG["denoise_iters"] * 2
+        assert den == ([("permute", "tx"), ("permute", "ty")] * 3 * CFG["denoise_iters"] * 2
+                       + [("gather", "sp")] * 2)
 
 
 def test_programs_step_matches_jax(start, runs):
@@ -286,17 +296,24 @@ def test_sharded_regime_matches_device_kf_max_on_ranks(start):
     assert {h for h, _ in out[0]} == {(True,), (False,)}
 
 
-def test_node_through_programs_matches_eager_node(start):
+@pytest.fixture(scope="module")
+def node_runs():
+    """The node at (2, 1, 2) with propagation, through the programs and
+    through the eager functions (``torch_mesh_cases.node_compare``)."""
+    frames = synthetic.generate(n_frames=40, width=W, height=H, cam=CAM, seed=5)
+    feed = [(fr.image, _Tcw(fr.T_world_curr), _bounds(fr)) for fr in frames]
+    cfg_kw = dict(num_planes=48, denoise_iters=10, propagate_depth=True)
+    return run_ranks(torch_mesh_cases.node_compare, (2, 1, 2), (feed, CAM, cfg_kw, None, 3, 8),
+                     device="cpu", timeout=600)
+
+
+def test_node_through_programs_matches_eager_node(node_runs):
     """The node at (2, 1, 2) with propagation, through the programs and
     through the eager functions (``torch_mesh_cases.EagerPrograms``): the
     same switches, update counts and exports bit for bit; each export holds
     its keyframe's own pose and scene, not the ones the reseed that followed
     it wrote into the slot's buffers."""
-    frames = synthetic.generate(n_frames=40, width=W, height=H, cam=CAM, seed=5)
-    feed = [(fr.image, _Tcw(fr.T_world_curr), _bounds(fr)) for fr in frames]
-    cfg_kw = dict(num_planes=48, denoise_iters=10, propagate_depth=True)
-    out = run_ranks(torch_mesh_cases.node_compare, (2, 1, 2), (feed, CAM, cfg_kw, None, 3, 8),
-                    device="cpu", timeout=600)
+    out = node_runs
     for rank in out:
         got, want = rank["programs"], rank["eager"]
         assert got["switches"] == want["switches"] and got["switches"]
@@ -311,3 +328,35 @@ def test_node_through_programs_matches_eager_node(start):
             assert not np.array_equal(k[1]["T_world_ref"], T_after)
             assert k[1]["scene"]["avg_depth"] != avg_after
     assert out[0]["programs"]["keyframes"] and out[2]["programs"]["keyframes"]
+
+
+def test_node_finalization_reseeds_before_the_denoise(node_runs):
+    """Every finalization, on every rank: the snapshot of the rank's
+    finalizing slots, then every finalizing slot's reseed, each followed by
+    its host-copy event (which the next frame's regime read waits on),
+    then the denoise of the snapshots on the slot's kf row, then on the
+    row's spatial leader one export per slot; nothing else before the next
+    step. So the next frame's regime read never waits for the TV-L1."""
+    finalized = 0
+    for r, rank in enumerate(node_runs):
+        calls = rank["programs"]["calls"]
+        starts = [i for i, (name, _) in enumerate(calls) if name == "snapshot"]
+        assert starts
+        for i in starts:
+            end = next((j for j in range(i, len(calls)) if calls[j][0] == "step"), len(calls))
+            seq = calls[i:end]
+            mine = seq[0][1]
+            k = 1
+            while k < len(seq) and seq[k][0] == "reseed":
+                assert seq[k + 1] == ("_refresh_host", None), seq
+                k += 2
+            assert k > 1, seq
+            rest = seq[k:]
+            if not mine:
+                assert rest == [], seq
+                continue
+            assert rest[0] == ("denoise", mine), seq
+            leader = r % 2 == 0     # (2, 1, 2): the first rank of each kf row
+            assert rest[1:] == ([("export", i) for i in mine] if leader else []), seq
+            finalized += 1
+    assert finalized >= 4

@@ -1,8 +1,9 @@
 """Rank functions of the port's mesh tests (``tests/test_torch_parallel.py``,
-``test_torch_sharded.py``, ``test_torch_sharded_programs.py``): each runs
-on every rank of a spawned ``torch.distributed`` mesh
-(``rpg_open_remode_tpu_torch.parallel.run_ranks``, gloo, CPU) and returns
-numpy. Spawned ranks import this module by name, so it imports nothing of
+``test_torch_sharded.py``, ``test_torch_sharded_programs.py``,
+``test_torch_graphs_sharded_cuda.py``): each runs on every rank of a
+spawned ``torch.distributed`` mesh
+(``rpg_open_remode_tpu_torch.parallel.run_ranks``: gloo on the CPU; on the
+card gloo or NCCL) and returns numpy. Spawned ranks import this module by name, so it imports nothing of
 JAX."""
 
 import dataclasses
@@ -18,7 +19,8 @@ from rpg_open_remode_tpu_torch.parallel import (
     build_sharded_update, collectives, exchange_halo_1d, exchange_halo_2d,
     make_distributed_mesh, make_mesh, shard_state, sharded_regime,
 )
-from rpg_open_remode_tpu_torch.parallel.distributed import local_block, local_stats
+from rpg_open_remode_tpu_torch.parallel.distributed import gather_kf_slot, local_block, local_stats
+from rpg_open_remode_tpu_torch.parallel.programs import GATHERED
 from rpg_open_remode_tpu_torch.parallel.sharded import _degenerate
 from rpg_open_remode_tpu_torch.utils import se3
 from rpg_open_remode_tpu_torch.utils.camera import PinholeCamera
@@ -178,6 +180,13 @@ def _sequences(progs) -> dict:
     return {p.label: [ex.signature[:2] for ex in p.exchanges] for p in progs.cache.values()}
 
 
+def _forms(progs) -> dict:
+    """Each cached program's form by its label: (graphs, exchange points,
+    collectives, replays); no graph on the CPU."""
+    return {p.label: (0 if p.graph is None else len(p.graph), len(p.exchanges),
+                      len(p.signatures), p.replays) for p in progs.cache.values()}
+
+
 def programs_steps(mesh, io, arrays, cfg_kw, cam, frames):
     """The programs path and the eager sharded step from ``arrays``, frame
     after frame: per frame both paths' tiles and packed stats, the host
@@ -225,15 +234,35 @@ def programs_reseed_denoise(mesh, io, arrays, cfg_kw, cam, slot, img, T_world_re
             progs.reseed(slot, T_world_ref)
             got.append(local_block(progs.states))
         key = "propagated" if propagated else "flat"
-        out[key] = dict(eager=want, programs=got, refs=progs.refs.numpy(),
-                        sequences=_sequences(progs))
+        out[key] = dict(eager=want, programs=got, refs=progs.refs.cpu().numpy(),
+                        sequences=_sequences(progs), forms=_forms(progs))
     den = build_sharded_denoise(mesh, cfg, h, w, iterations=cfg.denoise_iters)
     slots = list(range(len(arrays["mu"]) // mesh.axis_size("kf")))
-    want = np.stack([t.numpy() for t in den(shard_state(arrays, mesh), lam, slots)])
+    states = shard_state(arrays, mesh)
+    want = np.stack([t.cpu().numpy() for t in den(states, lam, slots)])
     progs = _programs(mesh, arrays, cfg, cam)
-    got = [np.stack([t.numpy() for t in progs.denoise(slots, lam)]) for _ in range(2)]
-    out["denoise"] = dict(eager=want, programs=got, sequences=_sequences(progs))
+    got, gathered = [], []
+    for _ in range(2):
+        progs.snapshot(slots)
+        got.append(np.stack([t.cpu().numpy() for t in progs.denoise(slots, lam)]))
+        if progs.leader:
+            gathered.append(progs.gathered.cpu().numpy())
+    out["denoise"] = dict(eager=want, programs=got, sequences=_sequences(progs),
+                          forms=_forms(progs), gathered=gathered,
+                          eager_gathered=_eager_gathered(mesh, states, slots, want))
     return out
+
+
+def _eager_gathered(mesh, states, slots, denoised):
+    """What the denoise program gathers, eagerly: each local slot's
+    ``GATHERED`` fields and denoised tile assembled on the spatial leader;
+    None elsewhere."""
+    out = []
+    for i, den in zip(slots, denoised):
+        fields = [getattr(states[i], f).float() for f in GATHERED]
+        full = gather_kf_slot(mesh, torch.stack(fields + [torch.as_tensor(den).to(mesh.device)]))
+        out.append(None if full is None else full.cpu().numpy())
+    return None if out[0] is None else np.stack(out)
 
 
 class EagerPrograms(ShardedPrograms):
@@ -256,23 +285,44 @@ class EagerPrograms(ShardedPrograms):
         scene = SceneParams.create(*self._bounds, self.cfg, device=self.device)
         self.states = fn(self.states, slot, self.inputs.images[self.dtype], T_world_ref, scene)
 
+    def snapshot(self, slots):
+        self.snaps = list(self.states)   # the reseeds make new states
+
     def denoise(self, slots, lam):
-        return self._denoise_fn(self.states, lam, list(slots))
+        self.finalize(self.snaps, slots, lam)
+        return [self.denoised[i] for i in slots]
+
+
+def _record_calls(progs, calls: list) -> None:
+    """Append (method, its first argument) to ``calls`` at every call of
+    the programs' step, reseed, host-copy refresh, snapshot, denoise and
+    export."""
+    for name in ("step", "reseed", "_refresh_host", "snapshot", "denoise", "export"):
+        def wrapped(*args, _f=getattr(progs, name), _name=name):
+            first = args[0] if args else None
+            calls.append((_name, list(first) if isinstance(first, list) else
+                          first if isinstance(first, int) else None))
+            return _f(*args)
+        setattr(progs, name, wrapped)
 
 
 def node_compare(mesh, io, frames, cam, cfg_kw, n_keyframes, policy_stride, stagger):
-    """``node_run`` through the programs and through ``EagerPrograms``, and
-    per export of the programs' run the keyframe pose and mean depth that
-    its slot holds after the reseed that followed it."""
+    """``node_run`` through the programs and through ``EagerPrograms``, per
+    export of the programs' run the keyframe pose and mean depth that its
+    slot holds after the reseed that followed it, and the programs' calls
+    in order (``_record_calls``)."""
     out = {}
     for eager in (False, True):
         h, w = frames[0][0].shape
         node = ShardedDepthmapNode(mesh, w, h, cam["fx"], cam["cx"], cam["fy"], cam["cy"],
                                    n_keyframes=n_keyframes, cfg=RemodeConfig(**cfg_kw),
                                    policy_stride=policy_stride, stagger=stagger)
+        calls = []
         if eager:
             p = node.programs
             node.programs = EagerPrograms(mesh, h, w, p.cam, p.cam_host, p.cfg, p.n)
+        else:
+            _record_calls(node.programs, calls)
         after = []
         seen = 0
         for img, T, bounds in frames:
@@ -287,7 +337,7 @@ def node_compare(mesh, io, frames, cam, cfg_kw, n_keyframes, policy_stride, stag
                 seen += 1
         node.close()
         out["eager" if eager else "programs"] = dict(
-            switches=node.switches, updates=list(node._n_updates), after=after,
+            switches=node.switches, updates=list(node._n_updates), after=after, calls=calls,
             keyframes=[(k.index, state_to_numpy(k.state), k.denoised_depth,
                         k.converged_percentage, k.n_updates) for k in node.keyframes])
     return out
@@ -361,4 +411,6 @@ def graphs_vs_eager(mesh, io, arrays, cfg_kw, cam, frames, single=False):
         out.append(row)
     return dict(frames=out, backend=mesh.backend,
                 programs={p.label: (len(p.graph), len(p.exchanges), p.replays)
-                          for p in progs.cache.values()})
+                          for p in progs.cache.values()},
+                collectives={p.label: [sig[:2] for sig in p.signatures]
+                             for p in progs.cache.values()})
