@@ -28,6 +28,15 @@ Two mechanisms keep the frame loop off the device's clock:
     reads of the snapshot are ordered after the copy, and no side stream
     is involved. The stats vector a frame returns is a copy too, made in
     stream order right after the frame's replay, which ``_fetch`` reads.
+
+Spans (``utils/profiling.span``, nothing while the tracer is off):
+``node.frame`` around each ``process_frame`` (its frame number is the node's
+``num_msgs``), ``node.reference``, ``node.fetch``, ``node.resolve`` with
+``node.stats_wait``, ``node.switch`` on the loop; ``node.finalize`` with
+``node.denoise`` (also on the device), ``node.download`` and
+``node.deliver`` on the worker, under the number of the frame that decided
+the switch. The gauge ``node.keyframes_device_bytes`` follows
+``keyframes_device_bytes``.
 """
 
 from __future__ import annotations
@@ -47,8 +56,8 @@ from rpg_open_remode_tpu_torch.io.pointcloud import tint_convergence
 from rpg_open_remode_tpu_torch.models.depthmap import (
     PACKED_STATS_KEYS, Depthmap, denoise_depthmap,
 )
-from rpg_open_remode_tpu_torch.models.state import SeedState
-from rpg_open_remode_tpu_torch.utils.profiling import MetricsLog
+from rpg_open_remode_tpu_torch.models.state import SeedState, state_bytes
+from rpg_open_remode_tpu_torch.utils.profiling import MetricsLog, carried, gauge, span
 
 
 class NodeState(enum.Enum):
@@ -72,26 +81,30 @@ class KeyframeResult:
 def _fetch(packed: torch.Tensor):
     """Start the device-to-host copy of a stats vector: ``(host tensor,
     event)``, the event None when the copy is already complete."""
-    if not packed.is_cuda:
-        return packed.clone(), None
-    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-    host.copy_(packed, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(packed.device))
-    return host, event
+    with span("node.fetch"):
+        if not packed.is_cuda:
+            return packed.clone(), None
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(packed.device))
+        return host, event
 
 
 class LifecycleNode:
     """What the lifecycle nodes share: finalization on one worker thread,
     the finalized ``keyframes`` and the teardown. A subclass sets
     ``engine``, ``cfg`` and ``on_keyframe``, queues its stats packets in
-    ``_pending_stats`` and resolves them in ``_resolve_oldest``."""
+    ``_pending_stats`` and resolves them in ``_resolve_oldest``.
+    ``keyframes_device_bytes`` counts the bytes of the states appended to
+    ``keyframes``."""
 
     def __init__(self):
         self._pending_stats: collections.deque = collections.deque()
         self._executor = ThreadPoolExecutor(max_workers=1)
         self._pending: list[Future] = []
         self.keyframes: list[KeyframeResult] = []
+        self.keyframes_device_bytes = 0
 
     @property
     def device(self) -> torch.device:
@@ -110,7 +123,7 @@ class LifecycleNode:
             with contextlib.nullcontext() if stream is None else torch.cuda.stream(stream):
                 fn(*args)
 
-        self._pending.append(self._executor.submit(task))
+        self._pending.append(self._executor.submit(carried(task)))
 
     def _prune_pending(self) -> None:
         """Drop completed worker futures, re-raising their exceptions now
@@ -126,15 +139,21 @@ class LifecycleNode:
     # -- keyframe completion (denoiseAndPublishResults, :165-182) ------------
 
     def _complete_keyframe(self, snapshot: SeedState, conv_pct: float, n_updates: int) -> None:
-        denoised = denoise_depthmap(
-            snapshot, self.engine.cfg, lam=self.cfg.denoise_lambda,
-            iterations=self.cfg.denoise_iters,
-        ).cpu().numpy()
-        result = KeyframeResult(state=snapshot, denoised_depth=denoised,
-                                converged_percentage=conv_pct, n_updates=n_updates)
-        self.keyframes.append(result)
-        if self.on_keyframe is not None:
-            self.on_keyframe(result)
+        with span("node.finalize"):
+            with span("node.denoise", device=True):
+                denoised = denoise_depthmap(snapshot, self.engine.cfg,
+                                            lam=self.cfg.denoise_lambda,
+                                            iterations=self.cfg.denoise_iters)
+            with span("node.download"):
+                denoised = denoised.cpu().numpy()
+            result = KeyframeResult(state=snapshot, denoised_depth=denoised,
+                                    converged_percentage=conv_pct, n_updates=n_updates)
+            with span("node.deliver"):
+                self.keyframes.append(result)
+                self.keyframes_device_bytes += state_bytes(snapshot)
+                gauge("node.keyframes_device_bytes", self.keyframes_device_bytes)
+                if self.on_keyframe is not None:
+                    self.on_keyframe(result)
 
     def drain(self) -> dict | None:
         """Resolve every in-flight stats packet (possibly finalizing
@@ -201,10 +220,15 @@ class DepthmapNode(LifecycleNode):
         without waiting on the device (about 2 * policy_stride frames old),
         or ``{"event": "updated"}`` between samples."""
         self.num_msgs += 1
+        with span("node.frame", frame=self.num_msgs):
+            return self._process_frame(image, T_curr_world, min_depth, max_depth)
+
+    def _process_frame(self, image, T_curr_world, min_depth, max_depth) -> dict:
         if self.state == NodeState.TAKE_REFERENCE_FRAME:
             if min_depth is None or max_depth is None:
                 raise ValueError("reference frame needs min/max depth bounds")
-            self.engine.set_reference_image(image, T_curr_world, min_depth, max_depth)
+            with span("node.reference"):
+                self.engine.set_reference_image(image, T_curr_world, min_depth, max_depth)
             self._n_updates = 0
             self.state = NodeState.UPDATE
             return {"event": "reference_set"}
@@ -229,9 +253,13 @@ class DepthmapNode(LifecycleNode):
         return out
 
     def _resolve_oldest(self) -> dict:
-        frame_no, gen, host, event = self._pending_stats.popleft()
+        with span("node.resolve"):
+            return self._resolve(*self._pending_stats.popleft())
+
+    def _resolve(self, frame_no, gen, host, event) -> dict:
         if event is not None:
-            event.synchronize()
+            with span("node.stats_wait"):
+                event.synchronize()
         stats = {k: float(v) for k, v in zip(PACKED_STATS_KEYS, host.tolist())}
         npx = self.engine.width * self.engine.height
         conv_pct = stats["converged"] / npx * 100.0
@@ -259,7 +287,8 @@ class DepthmapNode(LifecycleNode):
     # -- keyframe completion (denoiseAndPublishResults, :165-182) ------------
 
     def _finalize_keyframe(self, conv_pct: float) -> None:
-        self._submit(self._complete_keyframe, self.engine.state, conv_pct, self._n_updates)
+        with span("node.switch"):
+            self._submit(self._complete_keyframe, self.engine.state, conv_pct, self._n_updates)
 
     def close(self) -> None:
         try:

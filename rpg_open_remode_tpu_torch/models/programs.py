@@ -40,6 +40,13 @@ inside the program. Here:
     copies, nothing captured. There is no fallback: a failed capture or
     replay raises.
 
+Spans (``utils/profiling.span``, nothing while the tracer is off):
+``programs.stage`` around each upload with ``programs.staging_wait`` for a
+pinned buffer, ``programs.regime`` with ``programs.refs_wait`` for the
+keyframe's host copies, ``programs.replay`` around each graph launch (with
+CUDA events right before and after it), ``programs.stats_copy`` around the
+stats' copy.
+
 The functional ``update_step``, ``update_chunk`` and
 ``_set_reference_propagated`` of ``models/depthmap.py`` stay eager: they
 are the bodies captured here and the oracle the replays are held against.
@@ -63,6 +70,7 @@ from rpg_open_remode_tpu_torch.models.state import (
 from rpg_open_remode_tpu_torch.ops import rect_match
 from rpg_open_remode_tpu_torch.utils import warp as warp_ops
 from rpg_open_remode_tpu_torch.utils.camera import PinholeCamera
+from rpg_open_remode_tpu_torch.utils.profiling import span
 
 _PINNED_DEPTH = 3        # pinned staging buffers per shape and dtype
 _capture_streams: dict = {}
@@ -105,7 +113,8 @@ class Program:
         elif self.graph is None:
             self._warm_up_and_capture()
         else:
-            self._replay()
+            with span("programs.replay", self.label, device=True):
+                self._replay()
             kernels.add_launches(self.launches)
             self.replays += 1
 
@@ -184,6 +193,10 @@ class Inputs:
     def upload(self, dst: torch.Tensor, x) -> None:
         """Copy ``x`` (an array, or a tensor on any device) into ``dst`` in
         stream order, converting to its dtype, without a host sync."""
+        with span("programs.stage"):
+            self._upload(dst, x)
+
+    def _upload(self, dst: torch.Tensor, x) -> None:
         if isinstance(x, torch.Tensor) and x.device.type != "cpu":
             dst.copy_(x)
             return
@@ -198,7 +211,8 @@ class Inputs:
                     for _ in range(_PINNED_DEPTH)]
         buf, event = ring[i]
         if event is not None:
-            event.synchronize()   # the copy that last read this buffer
+            with span("programs.staging_wait"):
+                event.synchronize()   # the copy that last read this buffer
         buf.copy_(src)
         dst.copy_(buf, non_blocking=True)
         if event is None:
@@ -301,14 +315,16 @@ class Programs:
         none)."""
         if self.cfg.match_mode != "rect":
             return None
-        if self._host_refs is None:
-            if self._host_event is not None:
-                self._host_event.synchronize()
-            buf = self._host_buf.numpy().copy()
-            self._host_refs = (buf[:12].reshape(3, 4), buf[12])
-        T_ref, avg = self._host_refs
-        return rect_match.regime_index(T_host, T_ref, avg, self.fx, self.fy, self.height,
-                                       self.width, self.cfg)
+        with span("programs.regime"):
+            if self._host_refs is None:
+                if self._host_event is not None:
+                    with span("programs.refs_wait"):
+                        self._host_event.synchronize()
+                buf = self._host_buf.numpy().copy()
+                self._host_refs = (buf[:12].reshape(3, 4), buf[12])
+            T_ref, avg = self._host_refs
+            return rect_match.regime_index(T_host, T_ref, avg, self.fx, self.fy, self.height,
+                                           self.width, self.cfg)
 
     # -- the programs ---------------------------------------------------------
 
@@ -380,7 +396,9 @@ class Programs:
         dtype = self.inputs.load_image(img)
         T_host = self.inputs.load_pose(T_curr_world)
         self.step(dtype, T_host, grid)
-        return stats_of(self.packed.clone())
+        with span("programs.stats_copy"):
+            packed = self.packed.clone()
+        return stats_of(packed)
 
     def update_chunk(self, imgs, Ts_curr_world, grid=None) -> torch.Tensor:
         """K frames, one replay each with no host read between them; returns

@@ -113,6 +113,11 @@ def _leaves(state: SeedState) -> list[torch.Tensor]:
             + [getattr(state.scene, f.name) for f in dataclasses.fields(SceneParams)])
 
 
+def state_bytes(state: SeedState) -> int:
+    """Bytes of the state's tensors."""
+    return sum(t.numel() * t.element_size() for t in _leaves(state))
+
+
 def copy_into(dst: SeedState, src: SeedState) -> None:
     """Write ``src`` into the buffers of ``dst`` (same shapes and dtypes), in
     stream order; a leaf that already is its buffer is skipped."""

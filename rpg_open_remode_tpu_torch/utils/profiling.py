@@ -8,20 +8,29 @@ measures the enqueue: ``force`` fetches a scalar (which waits for the
 device), and ``Timer.amortized`` times a chain of calls between CUDA events
 when they run on the GPU. ``FrameClock`` times each call of a loop between
 CUDA events; ``graph_ms`` times a kernel wrapper replayed from a CUDA graph
-(no host launch cost); ``trace`` wraps ``torch.profiler`` and
-``device_busy_ms`` reads the device's busy time from it; ``profiled``
-runs a block under it and checks that the session's end was recorded;
-``phase_ms`` puts a phase's wall, device-span and device-busy time side by
-side; ``MetricsLog``
+(no host launch cost); ``device_busy_ms`` reads the device's busy time
+from a ``torch.profiler`` run; ``profiled`` runs a block under the profiler
+and checks that the session's end was recorded; ``phase_ms`` puts a
+phase's wall, device-span and device-busy time side by side; ``MetricsLog``
 writes the per-frame stats as newline-delimited JSON (the structured analog
 of src/depthmap_node.cpp:119-123).
+
+These clocks time the program from outside. ``TRACER`` records spans from
+inside it: the node, the facade's staging and the programs open ``span``s
+at their boundaries, which cost one flag read while the tracer is off (the
+default) and are switched on and off by ``enable`` / ``disable`` alone;
+``take`` returns what they recorded (``Records``, which writes itself out as
+a Chrome trace).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import itertools
 import json
 import os
+import threading
 import time
 from typing import Callable
 
@@ -153,23 +162,6 @@ def graph_ms(fn, n: int = 20, reps: int = 7) -> float:
     return float(np.median(times))
 
 
-@contextlib.contextmanager
-def trace(path: str | None = None):
-    """``torch.profiler`` over a block (CPU activity, and CUDA activity when
-    a GPU is present); yields the profiler. With ``path`` the trace is
-    written there as a Chrome trace (open in Perfetto)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield prof
-    if path:
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        prof.export_chrome_trace(path)
-
-
 def device_busy_ms(prof, before: float | None = None) -> float | None:
     """Milliseconds in which the device ran anything, over a
     ``torch.profiler`` run: the union of its CUDA activity intervals (only
@@ -286,3 +278,265 @@ class MetricsLog:
         if self._fh:
             self._fh.close()
             self._fh = None
+
+
+# -- the program's tracer ---------------------------------------------------------
+
+
+ANCHOR_TRIES = 16   # anchor events recorded at an enable with device events
+
+
+class _NoSpan:
+    """What ``span`` returns while the tracer is off: one shared object whose
+    entry and exit do nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+
+@dataclasses.dataclass
+class Span:
+    """A span as ``Records`` holds it: host times from ``time.perf_counter_ns``;
+    ``device``, where the span timed the device, its interval from CUDA
+    events put on the same clock by the enable's anchor."""
+
+    name: str
+    thread: int
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: int | None
+    frame: int | None
+    label: str | None = None
+    device: tuple[int, int] | None = None
+
+    @property
+    def ms(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e6
+
+
+@dataclasses.dataclass
+class Records:
+    """What the tracer recorded between ``enable`` and ``take``: its spans in
+    the order they ended, each counter's samples ``(time_ns, value)``, the
+    window ``(enable, disable)`` on the host clock, the anchor's error
+    (the most by which a device time can read early or late, ns; None
+    without device events) and the device spans that found the event pool
+    spent."""
+
+    spans: list[Span]
+    counters: dict[str, list[tuple[int, float]]]
+    window: tuple[int, int]
+    anchor_error_ns: int | None = None
+    dropped: int = 0
+
+    def write_chrome_trace(self, path: str) -> None:
+        """The records as a Chrome trace (Perfetto reads it): the spans by
+        thread in process 0, their device intervals in process 1, the
+        counters as counter tracks; times in microseconds."""
+        t0 = self.window[0]
+        events = [{"name": "process_name", "ph": "M", "pid": 0, "args": {"name": "host"}},
+                  {"name": "process_name", "ph": "M", "pid": 1, "args": {"name": "device"}}]
+        for s in self.spans:
+            args = {"id": s.id, "parent": s.parent, "frame": s.frame, "label": s.label}
+            events.append({"name": s.name, "ph": "X", "pid": 0, "tid": s.thread,
+                           "ts": (s.start_ns - t0) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+                           "args": args})
+            if s.device is not None:
+                events.append({"name": s.name, "ph": "X", "pid": 1, "tid": 0,
+                               "ts": (s.device[0] - t0) / 1e3,
+                               "dur": (s.device[1] - s.device[0]) / 1e3, "args": args})
+        for name, samples in self.counters.items():
+            events += [{"name": name, "ph": "C", "pid": 0, "ts": (t - t0) / 1e3,
+                        "args": {name: v}} for t, v in samples]
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump({"traceEvents": events, "displayTimeUnit": "ms"}, f)
+
+
+class _Thread(threading.local):
+    """A thread's open spans, innermost last, and the frame number its root
+    spans take (``carried``)."""
+
+    def __init__(self):
+        self.stack = []
+        self.frame = None
+
+
+class _OpenSpan:
+    __slots__ = ("tracer", "name", "label", "frame", "device", "id", "parent", "stack",
+                 "t0", "pair", "range")
+
+    def __init__(self, tracer, name, label, frame, device):
+        self.tracer, self.name, self.label = tracer, name, label
+        self.frame, self.device = frame, device
+
+    def __enter__(self):
+        tr = self.tracer
+        local = tr._thread
+        stack = self.stack = local.stack
+        if stack:
+            self.parent = stack[-1].id
+            if self.frame is None:
+                self.frame = stack[-1].frame
+        else:
+            self.parent = None
+            if self.frame is None:
+                self.frame = local.frame
+        self.id = next(tr._ids)
+        stack.append(self)
+        self.range = None
+        if torch._C._autograd._profiler_enabled():
+            self.range = torch.profiler.record_function(self.name)
+            self.range.__enter__()
+        self.pair = None
+        if self.device and tr._events:
+            i = 2 * next(tr._cursor)
+            if i + 1 < len(tr._events):
+                tr._events[i].record()
+                self.pair = i
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        tr = self.tracer
+        if self.pair is not None:
+            tr._events[self.pair + 1].record()
+        if self.range is not None:
+            self.range.__exit__(None, None, None)
+        self.stack.pop()
+        tr._spans.append((self.name, threading.get_ident(), self.t0, t1, self.id, self.parent,
+                          self.frame, self.label, self.pair))
+        return False
+
+
+class Tracer:
+    """Spans and counters recorded inside the program. Off until ``enable``;
+    while off, ``span`` returns ``NO_SPAN`` after one read of ``on``, and
+    ``gauge`` records nothing. While on, each span records its name, label,
+    thread, start and end on ``time.perf_counter_ns``, its parent (the span
+    open on its thread when it began) and a frame number (given, else its
+    parent's, else the thread's ``carried`` one); while ``torch.profiler`` is
+    active it also opens a ``record_function`` range of its name, so that
+    the profiler's trace shows it. A span opened with ``device=True`` also
+    records a CUDA event on the current stream at its entry and at its
+    exit, from a pool allocated by ``enable``; the events are read only in
+    ``take``."""
+
+    def __init__(self):
+        self.on = False
+        self._thread = _Thread()
+        self._reset()
+
+    def _reset(self):
+        self._spans: list = []
+        self._counters: dict = {}
+        self._ids = itertools.count()
+        self._cursor = itertools.count()
+        self._events: list = []
+        self._anchor = None
+        self._window = [0, 0]
+
+    def enable(self, events: int = 0) -> None:
+        """Start recording, dropping what was recorded before. ``events``:
+        device spans that get CUDA events (a pool of ``2 * events``, on the
+        current device); with any, an anchor event is recorded and waited on
+        between two reads of the host clock, ``ANCHOR_TRIES`` times, and the
+        tightest of them puts every event's time on the host clock."""
+        self.on = False
+        self._reset()
+        if events > 0:
+            self._events = [torch.cuda.Event(enable_timing=True) for _ in range(2 * events)]
+            torch.cuda.synchronize()
+            for _ in range(ANCHOR_TRIES):
+                anchor = torch.cuda.Event(enable_timing=True)
+                before = time.perf_counter_ns()
+                anchor.record()
+                anchor.synchronize()
+                after = time.perf_counter_ns()
+                # the anchor completed between the two reads: put at their
+                # midpoint, device times are off by at most half their
+                # distance; the closest pair is kept
+                if self._anchor is None or after - before < 2 * self._anchor[2]:
+                    self._anchor = (anchor, (before + after) // 2, (after - before + 1) // 2)
+        self._window[0] = time.perf_counter_ns()
+        self.on = True
+
+    def disable(self) -> None:
+        """Stop recording; what was recorded stays for ``take``."""
+        if self.on:
+            self._window[1] = time.perf_counter_ns()
+        self.on = False
+
+    def span(self, name: str, label: str | None = None, *, frame: int | None = None,
+             device: bool = False):
+        if not self.on:
+            return NO_SPAN
+        return _OpenSpan(self, name, label, frame, device)
+
+    def gauge(self, name: str, value: float) -> None:
+        """A counter's value now."""
+        if self.on:
+            self._counters.setdefault(name, []).append((time.perf_counter_ns(), value))
+
+    def frame(self) -> int | None:
+        """The frame number this thread's spans take now."""
+        local = self._thread
+        return local.stack[-1].frame if local.stack else local.frame
+
+    def carried(self, fn: Callable) -> Callable:
+        """``fn``, to be run on another thread, with this thread's frame
+        number for the spans it opens there (``fn`` itself while off)."""
+        if not self.on:
+            return fn
+        frame = self.frame()
+        local = self._thread
+
+        def run(*args, **kwargs):
+            saved, local.frame = local.frame, frame
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                local.frame = saved
+        return run
+
+    def take(self) -> Records:
+        """What was recorded since ``enable`` (and clears it). With device
+        events this waits for the device once, then reads each span's pair
+        against the anchor."""
+        spans, counters = self._spans, self._counters
+        self._spans, self._counters = [], {}
+        end = self._window[1] if not self.on else time.perf_counter_ns()
+        error, dropped, out = None, 0, []
+        if self._anchor is not None:
+            torch.cuda.synchronize()
+            anchor, at, error = self._anchor
+            dropped = max(0, next(self._cursor) - len(self._events) // 2)
+
+        def on_host(ev):
+            return at + round(anchor.elapsed_time(ev) * 1e6)
+
+        for name, thread, t0, t1, sid, parent, frame, label, pair in spans:
+            dev = None
+            if pair is not None:
+                dev = (on_host(self._events[pair]), on_host(self._events[pair + 1]))
+            out.append(Span(name, thread, t0, t1, sid, parent, frame, label, dev))
+        return Records(out, counters, (self._window[0], end), error, dropped)
+
+
+TRACER = Tracer()
+enable = TRACER.enable
+disable = TRACER.disable
+take = TRACER.take
+span = TRACER.span
+gauge = TRACER.gauge
+carried = TRACER.carried

@@ -53,10 +53,37 @@ def test_timer_and_force():
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
+    """The tracer's records written as a Chrome trace and read back: each
+    span a complete event on its thread with its frame, label and parent,
+    a device interval in the device's process, a counter's samples."""
     path = tmp_path / "trace" / "t.json"
-    with pprof.trace(str(path)) as prof:
-        torch.ones(16).sum()
-    assert prof is not None and path.is_file()
+    pprof.enable()
+    try:
+        with pprof.span("node.frame", frame=7):
+            with pprof.span("programs.replay", "update uint8"):
+                torch.ones(16).sum()
+        pprof.gauge("node.keyframes_device_bytes", 3.0)
+    finally:
+        pprof.disable()
+    records = pprof.take()
+    outer, inner = records.spans[1], records.spans[0]
+    inner.device = (inner.start_ns + 1000, inner.end_ns)
+    records.write_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = [e for e in events if e["ph"] == "X"]
+    assert [(e["name"], e["pid"]) for e in spans] == [
+        ("programs.replay", 0), ("programs.replay", 1), ("node.frame", 0)]
+    host_inner, dev_inner, host_outer = spans
+    assert host_inner["tid"] == host_outer["tid"] == inner.thread
+    assert host_inner["args"] == {"id": inner.id, "parent": outer.id, "frame": 7,
+                                  "label": "update uint8"}
+    assert host_outer["ts"] == pytest.approx((outer.start_ns - records.window[0]) / 1e3)
+    assert host_outer["dur"] == pytest.approx(outer.ms * 1e3)
+    assert dev_inner["ts"] == pytest.approx(host_inner["ts"] + 1.0)
+    assert host_outer["ts"] <= host_inner["ts"] <= host_inner["ts"] + host_inner["dur"] <= (
+        host_outer["ts"] + host_outer["dur"])
+    counters = [e for e in events if e["ph"] == "C"]
+    assert [e["args"] for e in counters] == [{"node.keyframes_device_bytes": 3.0}]
 
 
 def test_check_devices_needs_cuda(monkeypatch, capsys):
