@@ -144,14 +144,18 @@ KERNELS = {
     "tvl1": dict(source="rpg_open_remode_tpu_torch/csrc/tvl1.cu",
                  replaces="rpg_open_remode_tpu/ops/denoise_pallas.py:36, "
                           "rpg_open_remode_tpu/ops/denoise_pallas.py:177"),
+    "seed_update": dict(source="rpg_open_remode_tpu_torch/csrc/seed_update.cu",
+                        replaces="none: the frame step's tail after the back-warp, which XLA "
+                                 "fused in the JAX package"),
 }
 # substrings of the device kernels' names in a profiler trace
 KERNEL_SYMBOLS = {"sweep": "sweep_kernel", "warp": "homography_warp_kernel",
                   "resample_rows": "resample_rows_kernel",
-                  "resample_cols": "resample_cols_kernel", "tvl1": "tvl1_"}
+                  "resample_cols": "resample_cols_kernel", "tvl1": "tvl1_",
+                  "seed_update": "seed_update_kernel"}
 # the kernels of the engine's path; the 1-D resamplers run on the
 # undistortion path (UNDISTORT)
-PATH_KERNELS = ("sweep", "warp", "tvl1")
+PATH_KERNELS = ("sweep", "warp", "tvl1", "seed_update")
 WARP_LABELS = {5: "ref stack", 1: "curr", 3: "back-warp"}
 RECT_WARPS = tuple(WARP_LABELS.values())
 
@@ -628,6 +632,9 @@ def drive(torch, P, kernels, frames, cam, keep_frame=None, first=COARSE_FROM):
     # warps (a pure-rotation frame would make one)
     if launches["warp"] != 3 * (len(frames) - 1):
         raise AssertionError(f"{launches['warp']} warps for {len(frames) - 1} updates")
+    if launches["seed_update"] != len(frames) - 1:
+        raise AssertionError(f"{launches['seed_update']} fused tails for {len(frames) - 1} "
+                             f"updates")
     return dict(eng=eng, kept=kept, frames=len(frames), launches=launches, wall_ms=wall_ms,
                 frame_ms_median=float(np.median(frame_ms)),
                 frame_ms_p90=float(np.percentile(frame_ms, 90)),
@@ -2948,6 +2955,77 @@ def log_timings(rows):
             f"{r['bound'][0]:.4f} ms by {r['bound'][1]}){extra}; {r['work']}")
 
 
+SEED_UPDATE_SIZES = ((640, 480), (752, 480))
+SEED_UPDATE_FRAMES = 4
+
+
+def seed_update_bytes(h, w, rectified):
+    """What the fused tail must move: the planes it reads (conv, mu,
+    sigma_sq, a, b, f_ref x3, match_u, match_v, and the back-warp x3 or
+    found (1 byte), u, v, best_ncc) and writes (mu, sigma_sq, a, b, conv,
+    match_u, match_v, the NCC plane), each once, and the counts."""
+    read = (13 * 4 if rectified else 13 * 4 + 1) * h * w
+    return read + 8 * 4 * h * w + 5 * 4
+
+
+def seed_update_phase(torch):
+    """The fused tail (``csrc/seed_update.cu``) against its plain version
+    at the main path's shapes: at each of SEED_UPDATE_SIZES, on
+    SEED_UPDATE_FRAMES consecutive frames of ``scripts/profile_update.setup``
+    (the state after its warm-up updates), each flavour (the rectified
+    matcher's back-warped planes, and their unrectified match) bit for bit
+    in every leaf; on the first frame each flavour's device time a call from
+    CUDA graphs, the plain version's (CUDA events), the bound by bytes at
+    3.35 TB/s. Returns the max error and the timings."""
+    from rpg_open_remode_tpu_torch.models.depthmap import prep_image
+    from rpg_open_remode_tpu_torch.ops import rect_match, seed_check, seed_update_cuda
+    from rpg_open_remode_tpu_torch.ops.accounting import bound_ms
+    from rpg_open_remode_tpu_torch.scripts.profile_update import WARMUP, setup
+    from rpg_open_remode_tpu_torch.utils import se3
+    from rpg_open_remode_tpu_torch.utils.profiling import graph_ms
+
+    dev = torch.device("cuda")
+    err, rows = 0.0, {}
+    for w, h in SEED_UPDATE_SIZES:
+        x = setup(w, h, dev, k=SEED_UPDATE_FRAMES)
+        border = seed_check.border_mask(h, w, x.cfg, device=dev)
+        state = x.state
+        for n in range(SEED_UPDATE_FRAMES):
+            i = WARMUP + n   # the first frame after setup's warm-up updates
+            T_curr_ref = se3.compose(x.Ts[i], state.T_world_ref)
+            T_ref_curr = se3.inv(T_curr_ref)
+            conv1 = seed_check.classify_seeds(state.mu, state.sigma_sq, state.a, state.b,
+                                              state.scene.epsilon, border, x.cfg)
+            state1 = dataclasses.replace(state, conv=conv1)
+            planes = rect_match.match_rectified_planes(state1, prep_image(x.imgs[i]), T_curr_ref,
+                                                       x.cam, x.cfg)
+            res = rect_match.unrectify(planes, x.cfg)
+            for flavour, match in (("rectified", planes), ("generic", res)):
+                args = (state1, match, T_ref_curr, x.cam, x.cfg)
+                got = seed_update_cuda.fused_seed_update(*args)
+                want = seed_update_cuda.seed_update_plain(*args)
+                leaves = [(getattr(got[0], f), getattr(want[0], f))
+                          for f in ("mu", "sigma_sq", "a", "b", "conv", "match_u", "match_v")]
+                leaves += [(got[1], want[1]), (got[2], want[2])]   # counts, NCC plane
+                e = max(max_err(g, v) for g, v in leaves)
+                log(f"  {w}x{h} frame {i} {flavour}: max err {e:.3g} over every leaf")
+                err = max(err, e)
+                if n == 0:
+                    rows[f"{w}x{h} {flavour}"] = dict(
+                        ms=graph_ms(lambda a=args: seed_update_cuda.fused_seed_update(*a)),
+                        plain_ms=cuda_ms(torch, lambda a=args: seed_update_cuda.seed_update_plain(
+                            *a), 20, 3),
+                        plain_graph_ms=graph_ms(
+                            lambda a=args: seed_update_cuda.seed_update_plain(*a), n=5),
+                        bound=bound_ms(seed_update_bytes(h, w, flavour == "rectified"), 0.0),
+                        work=f"{flavour} flavour, frame {i} at {w}x{h}")
+            state = want[0]
+    log_timings(rows)
+    if err != 0.0:
+        raise AssertionError(f"the fused tail differs from its plain version (max err {err})")
+    return dict(err=err, rows=rows)
+
+
 def kernel_timings(torch, run640, run720, calls, warps):
     """Each kernel's time on frame KEEP_FRAME's own inputs beside its plain
     version and its bound: the sweep, every warp of ``warps`` (size ->
@@ -3220,6 +3298,12 @@ def main() -> int:
     for k, e in real_input_parity(torch, P, run640, calls).items():
         errs[k] = max(errs[k], e)
 
+    phase(f"the fused tail (csrc/seed_update.cu) against its plain version, both flavours, "
+          f"at {', '.join(f'{w}x{h}' for w, h in SEED_UPDATE_SIZES)}; its device time a call "
+          f"from CUDA graphs")
+    tail = seed_update_phase(torch)
+    errs["seed_update"] = tail["err"]
+
     phase("profiler over the replayed 640x480 run (the trace's launches held to the counts); "
           "work, bounds and lane use of its calls from an eager pass")
     prof, _ = profile_run(torch, P, kernels, frames640, CAM_640, "640x480 run", account=True)
@@ -3313,7 +3397,8 @@ def main() -> int:
     for k in KERNELS:
         path = undist if k.startswith("resample") else run640
         r = (rows["sweep full"] if k == "sweep" else undist["timings"][k]
-             if k.startswith("resample") else rows[k])
+             if k.startswith("resample") else tail["rows"]["640x480 rectified"]
+             if k == "seed_update" else rows[k])
         entry = dict(name=k, route="cuda", **KERNELS[k], launches=path["launches"][k],
                      max_abs_err=errs[k], ms=r["ms"], plain_ms=r["plain_ms"],
                      bound_ms=r["bound"][0], bound_by=r["bound"][1],
@@ -3349,6 +3434,10 @@ def main() -> int:
                 busy_share_wall=prof["busy_share_wall"],
                 busy_share_wall_unfused=prof_unfused["busy_share_wall"],
                 launches_752x480=run752["launches"][k], launches_1280x720=run720["launches"][k])
+        if k == "seed_update":
+            entry.update(per_call={lab: {f: x[f] for f in ("ms", "plain_ms", "plain_graph_ms")}
+                                   | dict(bound_ms=x["bound"][0]) for lab, x in tail["rows"].items()},
+                         launches_752x480=run752["launches"][k])
         if k == "tvl1":
             t7 = rows["tvl1 1280x720"]
             entry.update(ms_1280x720=t7["ms"], plain_ms_1280x720=t7["plain_ms"],

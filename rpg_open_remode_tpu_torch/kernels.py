@@ -7,7 +7,8 @@ cached under ``build/torch_kernels/`` beside the package, named by a hash of
 the sources and flags, so an edited source is rebuilt.
 
 Each wrapper (``ops/sweep_cuda.py``, ``ops/warp_cuda.py``,
-``ops/resample_cuda.py``, ``ops/denoise_cuda.py``) adds to ``LAUNCHES[name]``
+``ops/resample_cuda.py``, ``ops/denoise_cuda.py``,
+``ops/seed_update_cuda.py``) adds to ``LAUNCHES[name]``
 the kernel launches it makes (``count``), and nowhere else, so a run can show
 that the main path went through the kernels. A CUDA graph replay
 (``models/programs.py``) calls no wrapper: while a thread captures a graph,
@@ -31,7 +32,7 @@ from pathlib import Path
 
 import torch
 
-SOURCES = ("sweep.cu", "warp.cu", "resample.cu", "tvl1.cu")
+SOURCES = ("sweep.cu", "warp.cu", "resample.cu", "tvl1.cu", "seed_update.cu")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 # -fmad=false: no FMA contraction, so each kernel rounds every operation as
@@ -44,7 +45,8 @@ NVCC_FLAGS = (
 )
 
 # launches per kernel; plain integers, reset with reset_launches()
-LAUNCHES = {"sweep": 0, "warp": 0, "resample_rows": 0, "resample_cols": 0, "tvl1": 0}
+LAUNCHES = {"sweep": 0, "warp": 0, "resample_rows": 0, "resample_cols": 0, "tvl1": 0,
+            "seed_update": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,6 +59,7 @@ _SIGNATURES = {
     "remode_resample_rows": [_P] * 3 + [_I] * 4 + [_P],
     "remode_resample_cols": [_P] * 3 + [_I] * 4 + [_P],
     "remode_tvl1": [_P] * 10 + [_I] * 3 + [_F] * 4 + [_P, _P],
+    "remode_seed_update": [_P] * 30 + [_I, _I, _F, _I, _F, _I, _F, _I, _P],
 }
 
 _lib = None

@@ -21,12 +21,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from rpg_open_remode_tpu_torch.config import ConvergenceState, RemodeConfig
+from rpg_open_remode_tpu_torch.config import RemodeConfig
 from rpg_open_remode_tpu_torch.models import programs
 from rpg_open_remode_tpu_torch.models.state import SceneParams, SeedState
 from rpg_open_remode_tpu_torch.ops import denoise as denoise_ops
 from rpg_open_remode_tpu_torch.ops import (
-    epipolar, propagate, reduction, seed_check, seed_init, seed_update,
+    epipolar, propagate, seed_check, seed_init, seed_update_cuda,
 )
 from rpg_open_remode_tpu_torch.utils import se3
 from rpg_open_remode_tpu_torch.utils import warp as warp_ops
@@ -84,22 +84,20 @@ def update_step(state: SeedState, curr_img, T_curr_world, cam: PinholeCamera,
     )
     state = dataclasses.replace(state, conv=conv1)
 
-    # 2. epipolar NCC match (seedEpipolarMatchKernel)
-    result = epipolar.match(state, curr_img, T_curr_ref, cam, cfg, regime)
-    active = conv1 == int(ConvergenceState.UPDATE)
-    conv2 = epipolar.apply_match_to_conv(conv1, active, result.found)
+    # 2. epipolar NCC match (seedEpipolarMatchKernel); the rectified
+    # matcher stops at its back-warp, which the fused tail finishes
+    match = epipolar.match(state, curr_img, T_curr_ref, cam, cfg, regime, planes=True)
 
-    # 3. triangulate + Bayesian fusion (seedUpdateKernel)
-    new_state = seed_update.update_seeds(
-        state, conv2, result.u, result.v, se3.inv(T_curr_ref), cam, cfg
+    # 3. post-match states, triangulation + Bayesian fusion
+    # (seedUpdateKernel) and the state counts: one kernel on the card
+    new_state, counts, ncc = seed_update_cuda.fused_seed_update(
+        state, match, se3.inv(T_curr_ref), cam, cfg
     )
 
-    stats = reduction.convergence_stats(conv2)
+    stats = dict(zip(seed_update_cuda.COUNT_KEYS, counts.unbind()))
     stats["dist_from_ref"] = dist_from_ref
-    stats["mean_ncc"] = torch.mean(
-        torch.where(result.found, result.best_ncc, torch.zeros_like(result.best_ncc))
-    )
-    stats["packed"] = torch.stack([stats[k].float() for k in PACKED_STATS_KEYS])
+    stats["mean_ncc"] = torch.mean(ncc)
+    stats["packed"] = torch.cat([counts.float(), torch.stack([dist_from_ref, stats["mean_ncc"]])])
     return new_state, stats
 
 

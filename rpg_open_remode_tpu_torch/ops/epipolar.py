@@ -235,14 +235,15 @@ def match_epipolar_walk(state: SeedState, curr_img, T_curr_ref, cam: PinholeCame
 
 
 def match(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
-          cfg: RemodeConfig, regime: int | None = None) -> MatchResult:
-    """The matcher of ``cfg.match_mode``; the rectified one takes the
-    regime index ``regime`` (``rect_match.regime_index``; None: read the
-    device's)."""
+          cfg: RemodeConfig, regime: int | None = None, planes: bool = False):
+    """The matcher of ``cfg.match_mode``: a ``MatchResult``. The rectified
+    one takes the regime index ``regime`` (``rect_match.regime_index``;
+    None: read the device's), and with ``planes`` its rectified branch
+    returns the back-warped ``rect_match.RectPlanes`` instead."""
     if cfg.match_mode == "walk":
         return match_epipolar_walk(state, curr_img, T_curr_ref, cam, cfg)
     if cfg.match_mode == "sweep":
         return match_planesweep(state, curr_img, T_curr_ref, cam, cfg)
     from rpg_open_remode_tpu_torch.ops import rect_match
 
-    return rect_match.match(state, curr_img, T_curr_ref, cam, cfg, regime)
+    return rect_match.match(state, curr_img, T_curr_ref, cam, cfg, regime, planes)

@@ -27,6 +27,7 @@ the device, so that a frame step can be captured as one CUDA graph
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -376,8 +377,19 @@ def prepare_sweep(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
     )
 
 
-def match_rectified(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
-                    cfg: RemodeConfig) -> MatchResult:
+class RectPlanes(NamedTuple):
+    """The rectified matcher stopped at the back-warp: ``back`` [3, H, W]
+    (found-masked disparity, found-masked NCC and the found weight, warped
+    onto the reference grid) and the two homographies ``unrectify`` needs."""
+
+    back: torch.Tensor
+    H_ref_to_rect: torch.Tensor
+    H_rect_to_curr: torch.Tensor
+
+
+def match_rectified_planes(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
+                           cfg: RemodeConfig) -> RectPlanes:
+    """``match_rectified`` up to and including the back-warp."""
     height, width = curr_img.shape
     p = prepare_sweep(state, curr_img, T_curr_ref, cam, cfg)
     g = p["g"]
@@ -387,27 +399,34 @@ def match_rectified(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
         cfg.disp_pad, cfg.patch_side, cfg.subplane_refine,
     )
 
-    # back-warp to the reference grid, found-masked and renormalized so
-    # the -10 not-found sentinel never mixes into a match
+    # back-warp to the reference grid, found-masked so that ``unrectify``
+    # can renormalize and the -10 not-found sentinel never mixes into a match
     disp_best = disp_best + p["kbase"]
-    H_ref_to_rect = g["H_ref_to_rect"]
-    H_rect_to_curr = g["H_rect_to_curr"]
     found_f = found_r.float()
     out_stack = torch.stack([disp_best * found_f, best * found_f, found_f])
-    back, _, _ = warp_ops.homography_warp(out_stack, H_ref_to_rect, height, width,
+    back, _, _ = warp_ops.homography_warp(out_stack, g["H_ref_to_rect"], height, width,
                                           want_uv=False)
+    return RectPlanes(back, g["H_ref_to_rect"], g["H_rect_to_curr"])
+
+
+def unrectify(planes: RectPlanes, cfg: RemodeConfig) -> MatchResult:
+    """The rest of ``match_rectified``, per reference pixel: renormalize the
+    back-warped planes, then map each match (x_r - disp, y_r) on the rect
+    grid into the current image."""
+    back = planes.back
+    height, width = back.shape[-2:]
     found_b = back[2]
     wgt = torch.clamp(found_b, min=1e-6)
     disp_b = back[0] / wgt
     ncc_b = back[1] / wgt
 
-    dev = curr_img.device
+    dev = back.device
     yy = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
     xx = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
-    xr, yr = warp_ops.homography_coords(H_ref_to_rect, xx, yy)
+    xr, yr = warp_ops.homography_coords(planes.H_ref_to_rect, xx, yy)
 
     # match position in the current image: unrectify (x_r - disp, y_r)
-    Hc = H_rect_to_curr
+    Hc = planes.H_rect_to_curr
     uc_r = xr - disp_b
     den_c = Hc[2, 0] * uc_r + Hc[2, 1] * yr + Hc[2, 2]
     den_c = torch.where(torch.abs(den_c) < 1e-8, torch.full_like(den_c, 1e-8), den_c)
@@ -416,6 +435,11 @@ def match_rectified(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
 
     found = (found_b > 0.5) & (ncc_b >= cfg.ncc_threshold)
     return MatchResult(found=found, u=u_c, v=v_c, best_ncc=torch.clamp(ncc_b, -1.0, 1.0))
+
+
+def match_rectified(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
+                    cfg: RemodeConfig) -> MatchResult:
+    return unrectify(match_rectified_planes(state, curr_img, T_curr_ref, cam, cfg), cfg)
 
 
 def match_pure_rotation(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
@@ -518,17 +542,21 @@ def regime_index(T_curr_world, T_world_ref, avg_depth, fx, fy, height: int, widt
 
 
 def match(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
-          cfg: RemodeConfig, regime: int | None = None) -> MatchResult:
+          cfg: RemodeConfig, regime: int | None = None,
+          planes: bool = False) -> MatchResult | RectPlanes:
     """Rectified sweep with fallbacks for the two motion regimes
     rectification cannot serve: near-zero baseline -> pure-rotation
     matcher; an epipole inside/near either image footprint (axial motion)
     -> inverse-depth plane sweep. ``regime`` (``regime_index``, from host
     copies) picks the branch; without it the device's choice
-    (``regime_device``) is read on the host."""
+    (``regime_device``) is read on the host. With ``planes`` the rectified
+    branch stops at the back-warp and returns its ``RectPlanes``
+    (``unrectify`` finishes them)."""
+    rectified = match_rectified_planes if planes else match_rectified
     if not cfg.zero_baseline_fallback:
-        return match_rectified(state, curr_img, T_curr_ref, cam, cfg)
+        return rectified(state, curr_img, T_curr_ref, cam, cfg)
     if regime is None:
         height, width = curr_img.shape
         regime = int(regime_device(state, T_curr_ref, cam, cfg, height, width))
-    branch = (match_pure_rotation, epipolar.match_planesweep, match_rectified)[regime]
+    branch = (match_pure_rotation, epipolar.match_planesweep, rectified)[regime]
     return branch(state, curr_img, T_curr_ref, cam, cfg)

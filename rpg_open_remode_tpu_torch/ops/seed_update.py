@@ -24,7 +24,7 @@ from rpg_open_remode_tpu_torch.utils.camera import PinholeCamera
 
 # expected magnitude of a 3-component zero-mean Gaussian error of per-axis
 # sigma: sigma * sqrt(8/pi)
-_MAG3 = 1.5957691
+MAG3 = 1.5957691
 
 
 def _normpdf(x, mu, sigma_sq):
@@ -60,12 +60,12 @@ def update_seeds(
     t_rc = se3.translation(T_ref_curr)
     angle = cam.one_pix_angle()
     if cfg.pose_noise_rot_deg:
-        angle = angle + _MAG3 * cfg.pose_noise_rot_deg * (math.pi / 180.0)
+        angle = angle + MAG3 * cfg.pose_noise_rot_deg * (math.pi / 180.0)
     tau = triangulation_uncertainty(depth, f_ref, t_rc, angle)
     tau_sq = tau * tau
     if cfg.pose_noise_trans_m:
         t_norm = torch.clamp(torch.linalg.norm(t_rc), min=1e-6)
-        tau_t = depth * (_MAG3 * cfg.pose_noise_trans_m / t_norm)
+        tau_t = depth * (MAG3 * cfg.pose_noise_trans_m / t_norm)
         tau_sq = tau_sq + tau_t * tau_t
 
     # Gaussian x Beta posterior moment matching (seed_update.cu:89-110)

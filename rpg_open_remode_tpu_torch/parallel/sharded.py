@@ -45,7 +45,7 @@ from rpg_open_remode_tpu_torch.models.depthmap import prep_image
 from rpg_open_remode_tpu_torch.models.state import SceneParams, SeedState, states_from_numpy
 from rpg_open_remode_tpu_torch.ops import denoise as denoise_ops
 from rpg_open_remode_tpu_torch.ops import (
-    epipolar, propagate, rect_match, reduction, seed_check, seed_update,
+    epipolar, propagate, rect_match, seed_check, seed_update_cuda,
 )
 from rpg_open_remode_tpu_torch.ops.seed_init import template_stats
 from rpg_open_remode_tpu_torch.parallel import collectives
@@ -212,12 +212,9 @@ def build_sharded_update(mesh, cam: PinholeCamera, cfg: RemodeConfig, height: in
         else:
             fn = rect_fn if cfg.match_mode == "rect" else sweep_fn
         res = fn(st, curr_img, T_curr_ref)
-        active = conv1 == int(ConvergenceState.UPDATE)
-        conv2 = epipolar.apply_match_to_conv(conv1, active, res.found)
-        new_st = seed_update.update_seeds(st, conv2, res.u, res.v, se3.inv(T_curr_ref), cam, cfg)
-        counts = reduction.convergence_stats(conv2)
-        return new_st, torch.stack([counts[k].float() for k in SHARDED_PACKED_KEYS[:5]]), \
-            torch.linalg.norm(se3.translation(T_curr_ref))
+        new_st, counts, _ = seed_update_cuda.fused_seed_update(st, res, se3.inv(T_curr_ref),
+                                                               cam, cfg)
+        return new_st, counts.float(), torch.linalg.norm(se3.translation(T_curr_ref))
 
     choice = cfg.match_mode == "rect" and cfg.zero_baseline_fallback
 

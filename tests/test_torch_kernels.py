@@ -215,4 +215,5 @@ def test_ctypes_signatures_match_sources():
         for fn, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
             args = [p.strip() for p in params.split(",")]
             protos[fn] = [kinds["ptr"] if "*" in a else kinds[a.split()[0]] for a in args]
+    assert "remode_seed_update" in protos
     assert protos == kernels._SIGNATURES
