@@ -1,10 +1,12 @@
 """One run of one cell of ``BENCHMARK.json``: set-up, the measured window
-through ``DepthmapNode.process_frame``, with ``--trace 1`` a traced window
-after it, then the check of what the windows produced against the plain
-reference (``check.py``).
+through ``DepthmapNode.process_frame``, with ``--trace 1`` on the same node
+the program-traced window (``spans.py``) and the profiler's window after it,
+then the check of what the windows produced against the plain reference
+(``check.py``).
 
 Everything a cell names is found by name: its configuration in
-``configs/<config>.json``, its traffic mix in ``traffic/<traffic>.json`` and
+``configs/<config>.json``, its own limits, where it has them, in
+``limits/<workload>.json``, its traffic mix in ``traffic/<traffic>.json`` and
 each metric's reader in ``metrics/<metric>.py`` (``read(ctx)``, a number, or
 None where it finds nothing to read). Of the program the harness sees only
 what a user's loop sees: each ``process_frame`` call's return and the
@@ -21,13 +23,14 @@ import importlib.util
 import json
 import os
 import sys
+import threading
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from benchmark import check, profiling, synth
+from benchmark import check, profiling, spans, synth
 from benchmark.accounting import frame_bound_ms
 from benchmark.reference import engine as ref_engine
 from benchmark.reference import match as ref_match
@@ -54,18 +57,24 @@ class Cell:
 
 def load_cell(name: str, bench: dict | None = None) -> Cell:
     """The cell ``name`` of ``BENCHMARK.json`` with its configuration, its
-    traffic mix and the metrics it reports."""
+    traffic mix and the metrics it reports. Where ``limits/<name>.json``
+    exists, its ``limits`` replace the configuration's of the same names
+    in this cell."""
     bench = bench or json.loads((ROOT / "BENCHMARK.json").read_text())
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
     w = cells[name]
     conf = next(c for c in bench["configs"] if c["name"] == w["config"])
+    config = json.loads((ROOT / conf["file"]).read_text())
+    own = HERE / "limits" / f"{name}.json"
+    if own.exists():
+        config["limits"] = dict(config["limits"], **json.loads(own.read_text())["limits"])
 
     def mine(metrics):
         return [m for m in metrics if name in m.get("workloads", [name])]
 
-    return Cell(name=name, config=json.loads((ROOT / conf["file"]).read_text()),
+    return Cell(name=name, config=config,
                 traffic=json.loads((HERE / "traffic" / f"{w['traffic']}.json").read_text()),
                 end_to_end=mine(bench["end_to_end"]), per_layer=mine(bench["per_layer"]),
                 chips=w["chips"])
@@ -104,13 +113,12 @@ class Stream:
         return node.process_frame(self.bank.images[i], self.bank.poses[i], *self.bounds[i])
 
 
-def reachable_regimes(bank: synth.Bank, cfg: Config, camera: dict) -> dict:
-    """Matcher regime -> a (reference, update) pair of bank indices that
-    reaches it, over every reference position of the ping-pong stream and
-    the ``REGIME_SPAN`` frames after it."""
+def stream_regimes(bank: synth.Bank, cfg: Config, camera: dict):
+    """``(regime, reference, update)``, the matcher regime and the bank
+    indices, of every pair of the ping-pong stream: each reference position
+    with the ``REGIME_SPAN`` frames after it."""
     n = len(bank.poses)
     fx, fy = np.float32(camera["fx"]), np.float32(camera["fy"])
-    out = {}
     for t0 in range(max(2 * n - 2, 1)):
         r = synth.ping_pong(t0, n)
         T = bank.poses[r].astype(np.float64)
@@ -118,9 +126,16 @@ def reachable_regimes(bank: synth.Bank, cfg: Config, camera: dict) -> dict:
         avg = np.float32((bank.bounds[r, 0] + bank.bounds[r, 1]) / 2)
         for t in range(t0 + 1, t0 + 1 + REGIME_SPAN):
             j = synth.ping_pong(t, n)
-            g = ref_match.regime_index(bank.poses[j], T_ref, avg, fx, fy, camera["height"],
-                                       camera["width"], cfg)
-            out.setdefault(g, (r, j))
+            yield (ref_match.regime_index(bank.poses[j], T_ref, avg, fx, fy, camera["height"],
+                                          camera["width"], cfg), r, j)
+
+
+def reachable_regimes(bank: synth.Bank, cfg: Config, camera: dict) -> dict:
+    """Matcher regime -> the first (reference, update) pair of bank indices
+    of ``stream_regimes`` that reaches it."""
+    out = {}
+    for g, r, j in stream_regimes(bank, cfg, camera):
+        out.setdefault(g, (r, j))
     return out
 
 
@@ -224,10 +239,13 @@ def _host(result) -> dict:
                 depth_range=float(st.scene.depth_range))
 
 
-def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
-             t_process: float | None = None) -> dict:
-    """One run of ``cell``. Returns the context that the metric readers and
-    the check read."""
+def run_cell(cell: Cell, seed: int, seconds: float | None, trace: bool, device: str = "cuda",
+             t_process: float | None = None, frames: int | None = None) -> dict:
+    """One run of ``cell``: a window of ``seconds``. Returns the context that
+    the metric readers and the check read. ``frames``, which only the CPU
+    tests give, makes it a window of that many frames instead: a fixed
+    amount of work, where a loaded host would feed too few in a window of
+    time."""
     from rpg_open_remode_tpu_torch import Depthmap
     from rpg_open_remode_tpu_torch.config import RemodeConfig
     from rpg_open_remode_tpu_torch.models.node import DepthmapNode
@@ -267,10 +285,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
     captured = len(engine.programs.cache)
     setup_s = time.perf_counter() - t_process
 
-    # the measured window, then with --trace 1 the traced one
+    # the measured window, then with --trace 1 the program-traced window and
+    # the profiler's
     delivered = []
     node = DepthmapNode(engine, on_keyframe=delivered.append, policy_stride=stride)
-    win = drive(node, stream, t, tr, cuda, seconds=seconds, spans=trace)
+    win = drive(node, stream, t, tr, cuda, seconds=seconds, frames=frames, spans=trace)
     node.flush()
     if cuda:
         torch.cuda.synchronize()
@@ -278,7 +297,13 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
     refs = list(win.refs)
     t = win.start + win.fed
     flushes = [t - 1]
-    traced, traced_at = None, range(0)
+    program_trace, traced, traced_at = None, None, range(0)
+    if trace:
+        program_trace, w = program_window(node, stream, t, tr, cuda)
+        if w is not None:
+            refs.extend(w.refs)
+            t = w.start + w.fed
+            flushes.append(t - 1)
     if trace and cuda:
         box = {"next": t}
 
@@ -292,8 +317,18 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
             box["next"] = w.start + w.fed
             box["w"] = w
 
-        prof, marker = profiling.profiled(run)
-        traced = profiling.reduce(prof, marker, box["w"].fed, LABELS)
+        # the program's spans as ranges, so that the breakdown names them;
+        # the profiler shows them on the device too, where they are no work
+        prog = spans.tracer() if program_trace is not None else None
+        if prog is not None:
+            prog.enable()
+        try:
+            prof, marker = profiling.profiled(run)
+        finally:
+            if prog is not None:
+                prog.disable()
+        names = {s.name for s in prog.take().spans} if prog is not None else set()
+        traced = profiling.reduce(prof, marker, box["w"].fed, LABELS | names)
         traced_at = range(box["w"].start, box["w"].start + box["w"].fed)
         del prof
         t = box["next"]
@@ -322,14 +357,39 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
         torch.cuda.empty_cache()
 
     ctx = dict(cell=cell, seed=seed, setup_s=setup_s, window=win, trace=traced,
-               traced_at=traced_at, memory_peak_bytes=memory_peak, device=device,
-               stream=stream, refs=refs, last=t - 1, flushes=flushes, n_updates=n_updates,
-               outputs=outputs)
+               program_trace=program_trace, traced_at=traced_at,
+               memory_peak_bytes=memory_peak, device=device, stream=stream, refs=refs,
+               last=t - 1, flushes=flushes, n_updates=n_updates, outputs=outputs)
     t_check = time.perf_counter()
     ctx.update(recheck(ctx))
     ctx["check_s"] = time.perf_counter() - t_check
     ctx["numbers"]["captured_in_window"] = captured_in_window
     return ctx
+
+
+def program_window(node, stream: Stream, start: int, traffic: dict, cuda: bool):
+    """The program-traced window (``spans.py``): ``node`` fed from stream
+    position ``start`` for ``spans.SECONDS`` with the program's tracer on,
+    then flushed. Returns the ``spans.Traced`` window and the loop's
+    ``Window``; ``(None, None)`` for a program without the tracer."""
+    prog = spans.tracer()
+    if prog is None:
+        return None, None
+    held = node.keyframes_device_bytes
+    prog.enable(events=spans.EVENTS if cuda else 0)
+    try:
+        w = drive(node, stream, start, traffic, cuda, seconds=spans.SECONDS)
+        node.flush()
+        if cuda:
+            torch.cuda.synchronize()
+    finally:
+        prog.disable()
+    rec = prog.take()
+    tw = spans.Traced(spans=rec.spans, counters=rec.counters, window=rec.window,
+                      loop=threading.get_ident(), frames=w.fed, held_bytes=held,
+                      anchor_error_ns=rec.anchor_error_ns, dropped=rec.dropped)
+    spans.report(tw)
+    return tw, w
 
 
 def keyframe_frames(ctx: dict, k: int, n: int | None = None) -> list:

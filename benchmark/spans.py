@@ -1,30 +1,23 @@
 """The program-traced window that the readers of the program's spans read.
 
 The harness's windows time the program from outside. With ``--trace 1`` the
-first reader of a program span runs one more window, after the harness's
-windows and the check: a fresh engine and node over the cell's stream,
-warmed up as the harness warms its own, fed for ``SECONDS`` with the
-program's tracer on (``rpg_open_remode_tpu_torch.utils.profiling``: spans,
-the device intervals of its CUDA events, the keyframe bytes counter), then
-for the traffic's ``trace_frames`` under ``torch.profiler`` with the tracer
-still on, so that the profiler's trace holds the program's spans as ranges.
-It prints to standard error the window's device idle time by the innermost
-loop span open in each gap, and the profiler window's idle gaps by range.
-A program without the tracer gives None, and so does every reader of it.
+harness feeds its own node for ``SECONDS`` more with the program's tracer on
+(``rpg_open_remode_tpu_torch.utils.profiling``: spans, the device intervals
+of its CUDA events, the keyframe bytes counter), right after the measured
+window and before any profiler session (``harness.program_window``), and
+keeps it in the run's context as ``program_trace``. ``report`` prints to
+standard error the window's device idle time by the innermost loop span open
+in each gap. A program without the tracer gives None, and so does every
+reader of it.
 """
 
 from __future__ import annotations
 
 import bisect
 import dataclasses
-import gc
 import sys
-import threading
 
-import torch
-
-from benchmark import harness, stats
-from benchmark import profiling as bprof
+from benchmark import stats
 
 SECONDS = 10.0          # the program-traced window
 EVENTS = 16384          # device spans that get CUDA events in it
@@ -38,24 +31,23 @@ class Traced:
     """The program-traced window: the program's spans (``name``, ``thread``,
     ``start_ns``, ``end_ns``, ``id``, ``parent``, ``frame``, ``label``,
     ``device``), its counters' samples ``(time_ns, value)``, the window on
-    the host clock (ns), the loop's thread, the frames fed, the anchor's
-    error (ns) and the device spans that found no event; from the profiler
-    window, its device busy time a frame (ms)."""
+    the host clock (ns), the loop's thread, the frames fed, the node's
+    keyframe bytes when the window opened, the anchor's error (ns) and the
+    device spans that found no event."""
     spans: list
     counters: dict
     window: tuple
     loop: int
     frames: int
+    held_bytes: float = 0
     anchor_error_ns: int | None = None
     dropped: int = 0
-    busy_ms_per_frame: float | None = None
 
 
 def window(ctx: dict) -> Traced | None:
-    """The cell's program-traced window, run once a context."""
-    if "program_trace" not in ctx:
-        ctx["program_trace"] = _run(ctx)
-    return ctx["program_trace"]
+    """The run's program-traced window; None without ``--trace 1`` or
+    without the program's tracer."""
+    return ctx.get("program_trace")
 
 
 def tracer():
@@ -132,103 +124,11 @@ def idle_by_span(tw: Traced) -> dict:
     return by
 
 
-# -- the window ---------------------------------------------------------------------------
+# -- the report ---------------------------------------------------------------------------
 
-def _warm_engine(ctx: dict):
-    """A fresh engine with every program the stream reaches captured (the
-    harness's warm-up); returns it and the next stream position."""
-    from rpg_open_remode_tpu_torch import Depthmap
-    from rpg_open_remode_tpu_torch.config import RemodeConfig
-    from rpg_open_remode_tpu_torch.models.node import DepthmapNode
-
-    from benchmark.reference import match as ref_match
-    from benchmark.reference.config import Config
-
-    cell, stream = ctx["cell"], ctx["stream"]
-    cam, tr = cell.config["camera"], cell.traffic
-    engine = Depthmap(cam["width"], cam["height"], cam["fx"], cam["cx"], cam["fy"], cam["cy"],
-                      cfg=RemodeConfig(**cell.config["remode"]), device=ctx["device"])
-    node = DepthmapNode(engine, policy_stride=cell.config["policy_stride"])
-    t = 0
-    while t < tr["warmup_frames"] or not node.keyframes:
-        stream.feed(node, t)
-        t += 1
-        if t >= tr["warmup_frames"] and not node.keyframes:
-            node.flush()
-        if t > 10 * tr["warmup_frames"]:
-            raise RuntimeError("the warm-up finalized no keyframe")
-    node.close()
-    regimes = harness.reachable_regimes(stream.bank, Config(**cell.config["remode"]), cam)
-    for regime, (r, j) in sorted(regimes.items()):
-        if regime != ref_match.RECTIFIED:
-            engine.set_reference_image(stream.bank.images[r], stream.bank.poses[r],
-                                       *stream.bounds[r])
-            engine.update(stream.bank.images[j], stream.bank.poses[j])
-    return engine, t
-
-
-def _run(ctx: dict) -> Traced | None:
-    prog = tracer()
-    if prog is None:
-        return None
-    from torch.profiler import record_function
-
-    from rpg_open_remode_tpu_torch.models.node import DepthmapNode
-
-    cell, stream = ctx["cell"], ctx["stream"]
-    cuda = torch.device(ctx["device"]).type == "cuda"
-    engine, t = _warm_engine(ctx)
-    node = DepthmapNode(engine, policy_stride=cell.config["policy_stride"])
-    if cuda:
-        torch.cuda.synchronize()
-    gc.collect()
-    gaps = None
-    try:
-        prog.enable(events=EVENTS if cuda else 0)
-        try:
-            w = harness.drive(node, stream, t, cell.traffic, cuda, seconds=SECONDS)
-            node.flush()
-            if cuda:
-                torch.cuda.synchronize()
-        finally:
-            prog.disable()
-        rec = prog.take()
-        tw = Traced(spans=rec.spans, counters=rec.counters, window=rec.window,
-                    loop=threading.get_ident(), frames=w.fed,
-                    anchor_error_ns=rec.anchor_error_ns, dropped=rec.dropped)
-        if cuda:
-            box = {"next": t + w.fed}
-
-            def run():
-                with record_function(bprof.WINDOW):
-                    box["w"] = harness.drive(node, stream, box["next"], cell.traffic, cuda,
-                                             frames=cell.traffic["trace_frames"], labelled=True)
-                box["next"] += box["w"].fed
-
-            prog.enable()
-            try:
-                prof, marker = bprof.profiled(run)
-            finally:
-                prog.disable()
-                prog.take()
-            # the spans' ranges, which the profiler also shows on the device,
-            # are no device work
-            labels = harness.LABELS | {s.name for s in tw.spans}
-            trace = bprof.reduce(prof, marker, box["w"].fed, labels)
-            tw.busy_ms_per_frame = trace.busy_us() / 1e3 / trace.frames
-            gaps = harness.breakdown(trace)["idle_gaps"]
-            del prof
-    finally:
-        node.close()
-        del node, engine
-        gc.collect()
-        if cuda:
-            torch.cuda.empty_cache()
-    _report(tw, gaps)
-    return tw
-
-
-def _report(tw: Traced, gaps) -> None:
+def report(tw: Traced) -> None:
+    """The window's frames, length and device idle time by loop span, on
+    standard error."""
     lo, hi = tw.window
     idle = idle_by_span(tw)
     total = sum(idle.values())
@@ -237,7 +137,3 @@ def _report(tw: Traced, gaps) -> None:
           f"{total / 1e9!r} s ({device_idle_pct(tw)!r} %), by the innermost loop span: {parts}; "
           f"node.frame covers {frame_cover_pct(tw)!r} % of the window; anchor error "
           f"{tw.anchor_error_ns} ns; device spans without events {tw.dropped}", file=sys.stderr)
-    if gaps is not None:
-        print(f"profiled window with the program's spans: device busy {tw.busy_ms_per_frame!r} "
-              f"ms a frame; idle gaps by range: " + ", ".join(f"{k} {v!r} s" for k, v in gaps),
-              file=sys.stderr)

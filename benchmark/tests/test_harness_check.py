@@ -11,26 +11,38 @@ import pytest
 import torch
 
 from benchmark import check, harness
+from benchmark.reference import match as ref_match
 from benchmark.tests.tiny import tiny_cell
 
 torch.set_num_threads(2)
 SEED = 2**31 + 5
+CLOSED = ["over_table_640.offline", "over_table_640.forward"]   # lateral, axial motion
 
 
-def test_reference_replays_the_program_bit_for_bit():
+@pytest.mark.parametrize("workload, motion, regime", [
+    ("over_table_640.offline", "lateral", ref_match.RECTIFIED),
+    ("over_table_640.forward", "forward", ref_match.PLANE_SWEEP)])
+def test_reference_replays_the_program_bit_for_bit(workload, motion, regime):
+    """Each update of the motion takes the matcher ``regime`` (the lateral
+    dolly the rectified sweep, the axial one the plane sweep), and the
+    reference's keyframe equals the program's plain one."""
     import rpg_open_remode_tpu_torch as R
 
     from benchmark import synth
     from benchmark.reference import engine
     from benchmark.reference.config import Config
 
-    cell = tiny_cell()
+    cell = tiny_cell(workload)
     cam, scene = cell.config["camera"], cell.config["scene"]
-    bank = synth.render_bank(cam, scene, 12, 0.0115, "lateral", SEED, "cpu")
+    bank = synth.render_bank(cam, scene, 12, 0.0115, motion, SEED, "cpu")
     eng = R.Depthmap(cam["width"], cam["height"], cam["fx"], cam["cx"], cam["fy"], cam["cy"],
                      cfg=R.RemodeConfig(), device="cpu")
     eng.set_reference_image(bank.images[0], bank.poses[0], *map(float, bank.bounds[0]))
+    T_ref, avg = eng.state.T_world_ref.numpy(), np.float32(eng.state.scene.avg_depth)
     for i in range(1, 12):
+        assert ref_match.regime_index(bank.poses[i], T_ref, avg, np.float32(cam["fx"]),
+                                      np.float32(cam["fy"]), cam["height"], cam["width"],
+                                      Config()) == regime
         eng.update(bank.images[i], bank.poses[i])
     st, den = engine.replay_keyframe(bank.images, bank.poses, bank.bounds, list(range(12)),
                                      engine.Camera(**cam), Config(), "cpu")
@@ -95,16 +107,18 @@ def test_verdict_needs_every_number_within_its_limit():
     assert not check.verdict({"a": 0.5}, {"a": 0.1})[0]
 
 
-def run():
-    return harness.run_cell(tiny_cell(), SEED, 4.0, False, "cpu")
+def run(workload=CLOSED[0]):
+    """A window of 24 frames: three keyframes of the tiny cell's ~8."""
+    return harness.run_cell(tiny_cell(workload), SEED, None, False, "cpu", frames=24)
 
 
 def verdict(ctx):
     return check.verdict(ctx["numbers"], ctx["cell"].config["limits"])
 
 
-def test_sound_run_is_correct():
-    ctx = run()
+@pytest.mark.parametrize("workload", CLOSED)
+def test_sound_run_is_correct(workload):
+    ctx = run(workload)
     ok, table = verdict(ctx)
     assert ok, table
     assert ctx["outputs"] and ctx["window"].fed > 0
@@ -167,8 +181,9 @@ FAULTS = ["state unchanged", "answer altered", "half the frames left out", "swit
           "switch never"]
 
 
+@pytest.mark.parametrize("workload", CLOSED)
 @pytest.mark.parametrize("fault", FAULTS)
-def test_broken_timed_path_is_not_correct(monkeypatch, fault):
+def test_broken_timed_path_is_not_correct(monkeypatch, fault, workload):
     from rpg_open_remode_tpu_torch.models import node, programs
 
     if fault == "state unchanged":
@@ -185,7 +200,7 @@ def test_broken_timed_path_is_not_correct(monkeypatch, fault):
                                       float("inf") if never else 2.0, never)
         monkeypatch.setattr(node.DepthmapNode, "_resolve_oldest", resolve_)
         monkeypatch.setattr(node.DepthmapNode, "drain", drain_)
-    ctx = run()
+    ctx = run(workload)
     ok, table = verdict(ctx)
     assert not ok, table
     if fault.startswith("switch"):

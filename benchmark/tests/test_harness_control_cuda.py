@@ -18,7 +18,8 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["over_table_640.offline", "live_752.camera30"])
+@pytest.mark.parametrize("cell", ["over_table_640.offline", "live_752.camera30",
+                                  "over_table_640.forward"])
 def test_program_passes_and_control_fails(cuda, cell):
     c = harness.load_cell(cell)
     ctx = harness.run_cell(c, 2**31 + 101, 3.0, False, cuda)

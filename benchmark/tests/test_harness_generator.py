@@ -45,3 +45,24 @@ def test_bank_is_drawn_from_the_seed():
 def test_unknown_motion_is_refused():
     with pytest.raises(ValueError):
         synth.trajectory(3, 0.023, "spiral")
+
+
+def test_forward_bank_takes_the_plane_sweep():
+    """Over every (reference, update) pair of the forward mix's ping-pong
+    stream at the cell's own camera, nearly every update takes the plane
+    sweep; the rest, an update on its own reference frame at the turn,
+    the pure-rotation branch."""
+    from benchmark import harness
+    from benchmark.reference import match
+    from benchmark.reference.config import Config
+
+    cell = harness.load_cell("over_table_640.forward")
+    cam, tr = cell.config["camera"], cell.traffic
+    bank = synth.render_bank(cam, cell.config["scene"], tr["bank_frames"], tr["step_m"],
+                             tr["motion"], 2**31 + 13, "cpu")
+    z = synth.trajectory(tr["bank_frames"], tr["step_m"], tr["motion"])[:, 2, 3]
+    assert z.min() == pytest.approx(-0.299) and z.max() == pytest.approx(0.276)
+    regimes = [g for g, _, _ in harness.stream_regimes(bank, Config(), cam)]
+    assert set(regimes) == {match.PLANE_SWEEP, match.PURE_ROTATION}
+    share = regimes.count(match.PLANE_SWEEP) / len(regimes)
+    assert share >= 0.8 and share == pytest.approx(0.98)

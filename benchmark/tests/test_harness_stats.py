@@ -79,12 +79,15 @@ def test_roofline_share_is_bound_over_device_time():
     reader = __import__("benchmark.harness", fromlist=["reader"]).reader
     tr = Trace(device=[("void sweep_kernel<5>(float const*)", 0.0, 100.0),
                        ("void at::elementwise_kernel<4>()", 100.0, 400.0),
-                       ("Memcpy HtoD (Pinned -> Device)", 400.0, 410.0)],
+                       ("Memcpy HtoD (Pinned -> Device)", 400.0, 410.0),
+                       ("void (anonymous namespace)::seed_update_kernel<true>(int const*)",
+                        410.0, 440.0)],
                host=[], window=(0.0, 500.0), frames=2)
     w = Window(start=0, fed=700, t0=0.0, t1=1.0)
     ctx = {"trace": tr, "sweep_bound_ms": 0.005, "window": w}
     assert reader("sweep_roofline_pct.offline")(ctx) == pytest.approx(5.0)
+    # the hand kernels (the sweep, the fused tail) and the copy are not plain
     assert reader("plain_kernel_ms_per_frame.offline")(ctx) == pytest.approx(0.15)
-    assert reader("device_ops_per_frame.offline")(ctx) == pytest.approx(1.5)
+    assert reader("device_ops_per_frame.offline")(ctx) == pytest.approx(2.0)
     assert reader("sweep_roofline_pct.offline")({"trace": None}) is None
     assert reader("sweep_roofline_pct.offline")(dict(ctx, sweep_bound_ms=None)) is None

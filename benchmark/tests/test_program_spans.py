@@ -94,6 +94,9 @@ def test_lifecycle_readers():
         tw.spans.append(Span("node.switch", LOOP, 0, round(d * MS), 200 + k, None, 5))
         tw.spans.append(Span("node.finalize", WORKER, 0, round(3 * d * MS), 300 + k, None, 5))
     assert read("keyframes_held_gb.offline", tw) == pytest.approx(0.032)
+    # what the node held when the window opened is not the window's
+    tw.held_bytes = 8.0e6
+    assert read("keyframes_held_gb.offline", tw) == pytest.approx(0.024)
     assert read("switch_ms_p50.live", tw) == pytest.approx(0.7)
     assert read("finalize_ms_p50.live", tw) == pytest.approx(2.1)
     assert read("keyframes_held_gb.offline", _window()) is None
@@ -101,24 +104,32 @@ def test_lifecycle_readers():
 
 def test_readers_read_nothing_from_a_program_without_the_tracer(monkeypatch):
     monkeypatch.setattr(spans, "tracer", lambda: None)
-    ctx = {}
+    assert harness.program_window(None, None, 0, {}, False) == (None, None)
     for metric in ("device_idle_pct.offline", "stage_ms_p50.offline", "switch_ms_p50.live",
                    "keyframes_held_gb.offline"):
-        assert harness.reader(metric)(ctx) is None
-    assert ctx["program_trace"] is None
+        assert harness.reader(metric)({"program_trace": None}) is None
+        assert harness.reader(metric)({}) is None
 
 
-def test_window_runs_the_node_with_the_tracer_on(monkeypatch, capsys):
-    """The window at 128x96 on the CPU: the node's spans, frames and
-    keyframes, the idle line on standard error."""
+def test_window_runs_the_harness_node_with_the_tracer_on(monkeypatch, capsys):
+    """The window at 128x96 on the CPU, on the node that the measured window
+    fed: the node's spans, frames and keyframes, the idle line on standard
+    error, and the check over both windows' keyframes still correct."""
+    from benchmark import check
+
     monkeypatch.setattr(spans, "SECONDS", 1.5)
-    ctx = harness.run_cell(tiny_cell(), 2**31 + 77, 1.0, False, "cpu")
+    ctx = harness.run_cell(tiny_cell(), 2**31 + 77, None, True, "cpu", frames=12)
     tw = spans.window(ctx)
-    assert spans.window(ctx) is tw and tw.frames > 0
+    assert tw is ctx["program_trace"] and tw.frames > 0
+    assert ctx["last"] == ctx["window"].start + ctx["window"].fed + tw.frames - 1
     frames = spans.named(tw, "node.frame")
     assert len(frames) == tw.frames and {s.thread for s in frames} == {tw.loop}
+    # the node that the measured window fed: its frame numbers go on
+    assert min(s.frame for s in frames) >= ctx["window"].fed
     assert spans.frame_cover_pct(tw) > 50
     assert spans.device_intervals(tw) == []
     names = {s.name for s in tw.spans}
-    assert {"node.frame", "programs.stage", "programs.regime", "node.reference"} <= names
+    assert {"node.frame", "programs.stage", "programs.regime"} <= names
     assert "program-traced window:" in capsys.readouterr().err
+    ok, table = check.verdict(ctx["numbers"], ctx["cell"].config["limits"])
+    assert ok, table

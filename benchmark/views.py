@@ -8,7 +8,7 @@ import re
 # the program's hand-written kernels, by their names on the device
 HAND_KERNELS = re.compile(
     r"\b(sweep_kernel|homography_warp_kernel|resample_rows_kernel|resample_cols_kernel"
-    r"|tvl1_steps_kernel)\b")
+    r"|tvl1_steps_kernel|seed_update_kernel)\b")
 SWEEP = re.compile(r"\bsweep_kernel\b")
 TRANSFERS = re.compile(r"^(Memcpy|Memset)")
 
