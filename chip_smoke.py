@@ -152,7 +152,7 @@ KERNELS = {
 KERNEL_SYMBOLS = {"sweep": "sweep_kernel", "warp": "homography_warp_kernel",
                   "resample_rows": "resample_rows_kernel",
                   "resample_cols": "resample_cols_kernel", "tvl1": "tvl1_",
-                  "seed_update": "seed_update_kernel"}
+                  "seed_update": "seed_update_kernel", "planesweep": "planesweep_match_kernel"}
 # the kernels of the engine's path; the 1-D resamplers run on the
 # undistortion path (UNDISTORT)
 PATH_KERNELS = ("sweep", "warp", "tvl1", "seed_update")
@@ -3026,6 +3026,73 @@ def seed_update_phase(torch):
     return dict(err=err, rows=rows)
 
 
+PLANESWEEP_SIZES = ((640, 480), (752, 480))
+PLANESWEEP_FRAMES = 4
+# a ragged tile of the mesh's shape: seed planes smaller than the image
+PLANESWEEP_TILE = (100, 150, 173, 261)
+
+
+def planesweep_phase(torch):
+    """The plane-sweep kernel (``csrc/planesweep.cu``) against its plain
+    version on a forward dolly (``testing/planesweep_cases``), whose updates
+    all take the PLANE_SWEEP regime: at each of PLANESWEEP_SIZES, on
+    PLANESWEEP_FRAMES consecutive frames, the whole image bit for bit in
+    every output, and on the first frame a ragged mesh-shaped tile and the
+    bands narrowed to a few planes (most planes of a tile skipped); on the
+    first frame the call's device time from CUDA graphs (with the einsum and
+    plane set before the launch), the plain version's, the bound by
+    operations or bytes at the card's peaks, and the share of (tile, plane)
+    pairs skipped. Returns the max error and the timings."""
+    from rpg_open_remode_tpu_torch.models.depthmap import update_step
+    from rpg_open_remode_tpu_torch.ops import epipolar, planesweep_cuda
+    from rpg_open_remode_tpu_torch.ops.accounting import bound_ms, planesweep_work
+    from rpg_open_remode_tpu_torch.testing import planesweep_cases as cases
+    from rpg_open_remode_tpu_torch.utils import se3
+    from rpg_open_remode_tpu_torch.utils.profiling import graph_ms
+
+    dev = torch.device("cuda")
+    err, rows, skipped = 0.0, {}, {}
+    for w, h in PLANESWEEP_SIZES:
+        x = cases.forward_sequence(w, h, PLANESWEEP_FRAMES + 3, dev)
+        state = x.state
+        for n, (img, T) in enumerate(x.frames):
+            st = cases.classified(state, x.cfg)
+            T_curr_ref = se3.compose(T, st.T_world_ref)
+            args = epipolar.planesweep_args(st, img, T_curr_ref, x.cam, x.cfg)
+            calls = {"whole": args}
+            if n == 0:
+                calls["tile"] = cases.tile_args(args, *PLANESWEEP_TILE)
+                narrow = cases.classified(cases.narrowed(state, 1e-3), x.cfg)
+                calls["narrow"] = epipolar.planesweep_args(narrow, img, T_curr_ref, x.cam, x.cfg)
+            for label, a in calls.items():
+                planesweep_cuda.plane_counts(reset=True)
+                got = planesweep_cuda.planesweep_match(*a)
+                counts = planesweep_cuda.plane_counts(reset=True)
+                want = planesweep_cuda.planesweep_match_plain(*a)
+                e = max(max_err(g, v) for g, v in zip(got, want))
+                share = counts["skipped"] / counts["pairs"]
+                log(f"  {w}x{h} frame {n} {label}: max err {e:.3g} over found, u, v, best NCC; "
+                    f"{counts['skipped']} of {counts['pairs']} (tile, plane) pairs skipped "
+                    f"({100 * share:.1f} %)")
+                err = max(err, e)
+                skipped[f"{w}x{h} frame {n} {label}"] = share
+                if n == 0 and label == "whole":
+                    th, tw = a[2].shape
+                    work = planesweep_work(th, tw, h, w, x.cfg.num_planes, x.cfg.patch_side)
+                    rows[f"planesweep {w}x{h}"] = dict(
+                        ms=graph_ms(lambda a=a: planesweep_cuda.planesweep_match(*a)),
+                        plain_ms=graph_ms(lambda a=a: planesweep_cuda.planesweep_match_plain(*a),
+                                          n=2, reps=3),
+                        bound=bound_ms(work["bytes"], work["flops"]),
+                        work=f"frame {n} at {w}x{h}, {work['pairs']:.4g} pairs, "
+                             f"{100 * share:.1f} % of the (tile, plane) pairs skipped")
+            state, _ = update_step(state, img, T, x.cam, x.cfg)
+    log_timings(rows)
+    if err != 0.0:
+        raise AssertionError(f"the plane-sweep kernel differs from its plain version (max err {err})")
+    return dict(err=err, rows=rows, skipped=skipped)
+
+
 def kernel_timings(torch, run640, run720, calls, warps):
     """Each kernel's time on frame KEEP_FRAME's own inputs beside its plain
     version and its bound: the sweep, every warp of ``warps`` (size ->
@@ -3304,6 +3371,11 @@ def main() -> int:
     tail = seed_update_phase(torch)
     errs["seed_update"] = tail["err"]
 
+    phase(f"the plane-sweep kernel (csrc/planesweep.cu) against its plain version on a forward "
+          f"dolly at {', '.join(f'{w}x{h}' for w, h in PLANESWEEP_SIZES)}; its device time a call "
+          f"from CUDA graphs")
+    sweep_planes = planesweep_phase(torch)
+
     phase("profiler over the replayed 640x480 run (the trace's launches held to the counts); "
           "work, bounds and lane use of its calls from an eager pass")
     prof, _ = profile_run(torch, P, kernels, frames640, CAM_640, "640x480 run", account=True)
@@ -3471,6 +3543,14 @@ def main() -> int:
                          library_ms_slab_slowest=slow["library_ms"],
                          slab_slowest=f"{slow['name']} {slow['shape']}")
         out.append(entry)
+    r = sweep_planes["rows"]["planesweep 640x480"]
+    out.append(dict(
+        name="planesweep", route="cuda", source="rpg_open_remode_tpu_torch/csrc/planesweep.cu",
+        replaces="none: the PLANE_SWEEP regime's matcher, which XLA fused in the JAX package",
+        max_abs_err=sweep_planes["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound"][0], bound_by=r["bound"][1], library_ms=None,
+        ms_752x480=sweep_planes["rows"]["planesweep 752x480"]["ms"],
+        skipped_share=sweep_planes["skipped"]))
     log("  library_ms: one grid_sample call per resample pass, and per warp (a 2-D bilinear "
         "sample at (u, v), not the two-pass value); no single PyTorch call computes the sweep "
         "or TV-L1 (null)")

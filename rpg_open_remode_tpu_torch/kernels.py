@@ -8,9 +8,11 @@ the sources and flags, so an edited source is rebuilt.
 
 Each wrapper (``ops/sweep_cuda.py``, ``ops/warp_cuda.py``,
 ``ops/resample_cuda.py``, ``ops/denoise_cuda.py``,
-``ops/seed_update_cuda.py``) adds to ``LAUNCHES[name]``
-the kernel launches it makes (``count``), and nowhere else, so a run can show
-that the main path went through the kernels. A CUDA graph replay
+``ops/seed_update_cuda.py``, ``ops/planesweep_cuda.py``) adds to
+``LAUNCHES[name]`` the kernel launches it makes (``count``), and nowhere
+else, so a run can show that the main path went through the kernels. The
+plane sweep also counts on the device the planes it skipped
+(``planesweep_cuda.plane_counts``). A CUDA graph replay
 (``models/programs.py``) calls no wrapper: while a thread captures a graph,
 its wrappers count into the capture's own record (``recording``), which
 launches nothing and so adds nothing to ``LAUNCHES``, and every replay adds
@@ -32,7 +34,7 @@ from pathlib import Path
 
 import torch
 
-SOURCES = ("sweep.cu", "warp.cu", "resample.cu", "tvl1.cu", "seed_update.cu")
+SOURCES = ("sweep.cu", "warp.cu", "resample.cu", "tvl1.cu", "seed_update.cu", "planesweep.cu")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 # -fmad=false: no FMA contraction, so each kernel rounds every operation as
@@ -46,7 +48,7 @@ NVCC_FLAGS = (
 
 # launches per kernel; plain integers, reset with reset_launches()
 LAUNCHES = {"sweep": 0, "warp": 0, "resample_rows": 0, "resample_cols": 0, "tvl1": 0,
-            "seed_update": 0}
+            "seed_update": 0, "planesweep": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,6 +62,8 @@ _SIGNATURES = {
     "remode_resample_cols": [_P] * 3 + [_I] * 4 + [_P],
     "remode_tvl1": [_P] * 10 + [_I] * 3 + [_F] * 4 + [_P, _P],
     "remode_seed_update": [_P] * 30 + [_I, _I, _F, _I, _F, _I, _F, _I, _P],
+    "remode_planesweep": [_P] * 18 + [_I] * 6 + [_F] * 8 + [_I, _P],
+    "remode_planesweep_plane_counts": [_P, _I],
 }
 
 _lib = None

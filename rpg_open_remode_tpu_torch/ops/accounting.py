@@ -101,6 +101,22 @@ def call_work(curr_pad, xlim, ref_img, valid, disp_lo, disp_hi, ncc_threshold,
                 bytes=4 * (curr_pad.numel() + xlim.numel() + 6 * h * w) + h * w)
 
 
+def planesweep_work(th: int, tw: int, height: int, width: int, num_planes: int,
+                    patch_side: int) -> dict:
+    """What one plane-sweep call (``ops/planesweep_cuda``) on a ``th x tw``
+    tile against a ``height x width`` current image needs: ``pairs``, every
+    (pixel, plane) pair the plain loop scores; ``flops``, the ZNCC's
+    algorithmic 12 hp + 11 a pair; ``bytes``, each input read once (the
+    window's reference pixels and three bearing planes, mu, sigma_sq, the two
+    template planes, the current image) and each output written once
+    (found, 1 byte; u, v, best NCC)."""
+    p = patch_side // 2
+    ext = (th + 2 * p) * (tw + 2 * p)
+    pairs = float(th * tw * num_planes)
+    return dict(pairs=pairs, flops=pairs * (12.0 * p + 11.0),
+                bytes=4 * (4 * ext + 4 * th * tw + height * width) + 13 * th * tw)
+
+
 def sweep_counts(state: SeedState, curr_img, T_curr_world, cam: PinholeCamera,
                  cfg: RemodeConfig) -> dict:
     """The sweep work the next update of ``state`` on this frame does:

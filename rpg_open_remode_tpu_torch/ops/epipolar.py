@@ -19,7 +19,7 @@ from rpg_open_remode_tpu_torch.config import ConvergenceState, RemodeConfig
 from rpg_open_remode_tpu_torch.models.state import SeedState
 from rpg_open_remode_tpu_torch.utils import se3
 from rpg_open_remode_tpu_torch.utils.camera import PinholeCamera
-from rpg_open_remode_tpu_torch.utils.interp import bilinear, window_sum
+from rpg_open_remode_tpu_torch.utils.interp import bilinear
 
 _FLT_MIN = 1.1754944e-38  # FLT_MIN, epipolar_match.cu:129
 _NEG = -1e30
@@ -65,74 +65,14 @@ def match_planesweep_tile(ref_ext, f_ext, mu, sigma_sq, sum_templ, const_templ_d
                           scene, curr_img, T_curr_ref, cam: PinholeCamera,
                           cfg: RemodeConfig) -> MatchResult:
     """Plane sweep over one tile of the seed state: ``ref_ext``/``f_ext``
-    carry a p-px halo (p = patch_side // 2), so box sums are 'valid' sums."""
-    height, width = curr_img.shape
-    area = float(cfg.patch_area)
-    p = cfg.patch_side // 2
-    side = cfg.patch_side
+    carry a p-px halo (p = patch_side // 2), so box sums are 'valid' sums.
+    ``ops/planesweep_cuda.planesweep_match``: one kernel launch on the card,
+    the plain loop on the CPU."""
+    from rpg_open_remode_tpu_torch.ops import planesweep_cuda
 
-    R = se3.rotation(T_curr_ref)
-    t = se3.translation(T_curr_ref)
-    Rf_ext = torch.einsum("ij,jhw->ihw", R, f_ext)
-    Rf = Rf_ext[:, p:-p, p:-p]
-    inv_lo, inv_step = plane_set(scene, cfg)
-
-    sigma = torch.sqrt(sigma_sq)
-    d_lo = torch.clamp(mu - cfg.sigma_band * sigma, min=cfg.min_search_depth)
-    d_hi = mu + cfg.sigma_band * sigma
-    u_mu, v_mu, _ = _project_depth(Rf, t, mu, cam)
-    u_a, v_a, _ = _project_depth(Rf, t, d_lo, cam)
-    u_b, v_b, _ = _project_depth(Rf, t, d_hi, cam)
-    seg_len = torch.sqrt((u_b - u_a) ** 2 + (v_b - v_a) ** 2)
-    half_length = 0.5 * torch.clamp(seg_len, max=cfg.max_epipolar_extent)
-    m = float(cfg.patch_side)
-    neg = torch.full_like(mu, _NEG)
-
-    def valid_box(x):
-        return window_sum(window_sum(x, side, 1), side, 0)
-
-    best = torch.full_like(mu, -1.0)
-    best_k = torch.full(mu.shape, -10, dtype=torch.int32, device=mu.device)
-    left, right, prev = neg, neg, neg
-    for k in range(cfg.num_planes):
-        d = 1.0 / (inv_lo + inv_step * k)
-        ue, ve, _ = _project_depth(Rf_ext, t, d, cam)
-        warped = bilinear(curr_img, ue, ve)
-        s_i = valid_box(warped)
-        s_ii = valid_box(warped * warped)
-        s_it = valid_box(warped * ref_ext)
-        num = area * s_it - s_i * sum_templ
-        den = (area * s_ii - s_i * s_i) * const_templ_denom
-        ncc = num * torch.rsqrt(den + _FLT_MIN)
-        u = ue[p:-p, p:-p]
-        v = ve[p:-p, p:-p]
-        z = Rf[2] * d + t[2]
-        visible = (u >= m) & (u < width - m) & (v >= m) & (v < height - m) & (z > 0)
-        in_band = (d >= d_lo) & (d <= d_hi)
-        dist = torch.sqrt((u - u_mu) ** 2 + (v - v_mu) ** 2)
-        ncc = torch.where(visible & in_band & (dist <= half_length), ncc, neg)
-        improved = ncc > best
-        right = torch.where(best_k == k - 1, ncc, right)
-        left = torch.where(improved, prev, left)
-        right = torch.where(improved, neg, right)
-        best_k = torch.where(improved, k, best_k)
-        best = torch.where(improved, ncc, best)
-        prev = ncc
-
-    # sub-plane parabolic refinement in inverse depth
-    kf = best_k.float()
-    if cfg.subplane_refine:
-        have = (left > _NEG * 0.5) & (right > _NEG * 0.5)
-        denom = left - 2.0 * best + right
-        delta = torch.where(
-            have & (torch.abs(denom) > 1e-12), 0.5 * (left - right) / denom,
-            torch.zeros_like(denom),
-        )
-        kf = kf + torch.clamp(delta, -0.5, 0.5)
-    d_best = 1.0 / (inv_lo + inv_step * kf)
-    u_best, v_best, _ = _project_depth(Rf, t, d_best, cam)
-    found = (best >= cfg.ncc_threshold) & (best_k >= 0)
-    return MatchResult(found=found, u=u_best, v=v_best, best_ncc=best)
+    return planesweep_cuda.planesweep_match(ref_ext, f_ext, mu, sigma_sq, sum_templ,
+                                            const_templ_denom, scene, curr_img, T_curr_ref,
+                                            cam, cfg)
 
 
 def extend_with_clamp(img: torch.Tensor, p: int) -> torch.Tensor:
@@ -151,16 +91,21 @@ def bearings_for_grid(cam: PinholeCamera, ys: torch.Tensor, xs: torch.Tensor):
 def match_planesweep(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
                      cfg: RemodeConfig) -> MatchResult:
     """The tile sweep on the whole image with a clamped halo."""
+    return match_planesweep_tile(*planesweep_args(state, curr_img, T_curr_ref, cam, cfg))
+
+
+def planesweep_args(state: SeedState, curr_img, T_curr_ref, cam: PinholeCamera,
+                    cfg: RemodeConfig) -> tuple:
+    """The arguments of ``match_planesweep_tile`` for the whole image: the
+    reference image and the bearings extended by a clamped p-px halo."""
     height, width = curr_img.shape
     p = cfg.patch_side // 2
     dev = curr_img.device
     ys = torch.clamp(torch.arange(-p, height + p, device=dev), 0, height - 1)
     xs = torch.clamp(torch.arange(-p, width + p, device=dev), 0, width - 1)
-    return match_planesweep_tile(
-        extend_with_clamp(state.ref_img, p), bearings_for_grid(cam, ys, xs),
-        state.mu, state.sigma_sq, state.sum_templ, state.const_templ_denom,
-        state.scene, curr_img, T_curr_ref, cam, cfg,
-    )
+    return (extend_with_clamp(state.ref_img, p), bearings_for_grid(cam, ys, xs),
+            state.mu, state.sigma_sq, state.sum_templ, state.const_templ_denom,
+            state.scene, curr_img, T_curr_ref, cam, cfg)
 
 
 def _patch_offsets(cfg: RemodeConfig, device):
