@@ -1,31 +1,22 @@
-"""The port's bench, scaling and profile scripts
-(``rpg_open_remode_tpu_torch/bench.py``, ``bench_scaling.py``,
-``scripts/``) on the CPU at small sizes, against the root ``bench.py``,
-``SCALING_r05.json`` and the JAX ``Depthmap``.
+"""The port's engine over the bench protocol's accuracy sequence, and its
+profile and roofline scripts (``rpg_open_remode_tpu_torch/scripts/``), on
+the CPU at small sizes, against the JAX ``Depthmap``.
 
-Held: the bench line carries every key of ``bench.py``'s ``result`` (read
-with ``ast`` from the file) and the scaling line every key of
-``SCALING_r05.json``; the bench's accuracy sequence (keyframe, warm-up,
+Held: the accuracy sequence of the root ``bench.py`` (keyframe, warm-up,
 three restored passes, one more update, the accuracy) at 160x120 agrees
-with the same sequence through the JAX engine: conv on >= 0.999 of pixels,
-converged % within 0.1 point, RMSE, median error and within-2.6 % to rtol
-1e-3; two restored passes end in the same state bit for bit; the profile
-scripts print every phase row, and the FULL update_step row's chain ends
-in ``update_step``'s own state; without CUDA and without ``--device cpu``
-the scripts refuse.
+between the port's ``Depthmap`` and the JAX one: conv on >= 0.999 of
+pixels, converged % within 0.1 point, RMSE, median error and within-2.6 %
+to rtol 1e-3; two restored passes end in the same state bit for bit; the
+profile scripts print every phase row, and the FULL update_step row's
+chain ends in ``update_step``'s own state; without CUDA the scripts
+refuse.
 
 The accuracy sequence runs 12 warm-up frames and passes over 10 more (the
 protocol's 5 warm-up frames leave too few updates at this size for any
 seed to pass the inlier-ratio test, so the sequence would hold nothing).
 """
 
-import ast
 import json
-import math
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -33,82 +24,37 @@ import torch
 
 import rpg_open_remode_tpu as J
 from rpg_open_remode_tpu.utils import synthetic
-from rpg_open_remode_tpu_torch import bench, bench_scaling
-from rpg_open_remode_tpu_torch.config import RemodeConfig
-from rpg_open_remode_tpu_torch.models.depthmap import update_step
+from rpg_open_remode_tpu_torch.config import ConvergenceState, RemodeConfig
+from rpg_open_remode_tpu_torch.models.depthmap import Depthmap, update_step
 from rpg_open_remode_tpu_torch.models.state import state_to_numpy
 from rpg_open_remode_tpu_torch.scripts import profile_match, profile_update, roofline
 
 torch.set_num_threads(2)
-ROOT = Path(__file__).resolve().parent.parent
 CAM = dict(fx=120.3, fy=-120.0, cx=79.5, cy=59.5)
-TINY = dict(width=96, height=72, cam=dict(fx=72.0, fy=-71.0, cx=47.5, cy=35.5), step=0.06,
-            bound_pad=(1.0, 1.0), n=6, wu=2, n_pass=1)
+TINY_CAM = dict(fx=72.0, fy=-71.0, cx=47.5, cy=35.5)
 
 
-def _jax_result_keys():
-    """The keys of ``result`` in the root bench.py's ``main``."""
-    tree = ast.parse((ROOT / "bench.py").read_text())
-    for node in ast.walk(tree):
-        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
-                and any(isinstance(t, ast.Name) and t.id == "result" for t in node.targets)):
-            return {k.value for k in node.value.keys}
-    raise AssertionError("no result dict in bench.py")
+def _as_u8(img):
+    """8-bit frames, as a camera gives them."""
+    return np.clip(img * 255.0, 0, 255).astype(np.uint8)
 
 
-@pytest.fixture(scope="module")
-def bench_line():
-    points = {
-        "fast_motion": dict(TINY, bound_pad=(0.5, 2.5), cfg=RemodeConfig()),
-        "live_752": dict(TINY, cfg=RemodeConfig()),
-        "hd_720p": dict(TINY, cfg=None, denoise_n=2),
-        "fhd_1080p": dict(TINY, cfg=None, denoise_n=2),
-    }
-    return bench.run("cpu", width=96, height=72, cam=TINY["cam"], n_frames=8, warmup=2,
-                     n_pass=1, node_passes=1, chunk=2, denoise_n=2, points=points)
+def _Tcw(fr):
+    T = np.concatenate([fr.T_world_curr, [[0, 0, 0, 1]]])
+    return np.linalg.inv(T)[:3].astype(np.float32)
 
 
-def test_bench_line_has_every_key_of_the_jax_bench(bench_line):
-    want = _jax_result_keys()
-    assert len(want) >= 30
-    assert want <= set(bench_line), want - set(bench_line)
-    assert bench_line["backend"] == "cpu"
-    assert bench_line["device_name"] == "cpu" and bench_line["power_limit_w"] is None
-    timed = [k for k in bench_line if k.endswith(("_fps", "_ms"))] + ["value"]
-    for k in timed:
-        assert isinstance(bench_line[k], float) and math.isfinite(bench_line[k]) \
-            and bench_line[k] > 0, (k, bench_line[k])
-    assert set(bench_line["spread"]) == {"streaming", "node_lifecycle", "offline_chunked",
-                                         "offline_staged", *bench.POINTS}
-    for name in ("offline_staged", *bench.POINTS):
-        for regime in ("young", "steady"):
-            assert bench_line["efficiency"][f"{name}_{regime}"]["pairs_full"] > 0
-    assert [p["after"] for p in bench_line["h2d_probes"]] == [
-        "warmup", "streaming+denoise", "offline", *bench.POINTS, "final"]
-    json.dumps(bench_line)
-
-
-def test_scaling_line_has_every_key_of_scaling_r05():
-    out = bench_scaling.run("cpu", width=96, height=72, cam=TINY["cam"], n_frames=14, end=14,
-                            n_pass=1)
-    want = set(json.loads((ROOT / "SCALING_r05.json").read_text()))
-    assert want <= set(out), want - set(out)
-    assert out["backend"] == "cpu" and out["device_name"] == "cpu"
-    for k in want - {"metric", "backend"}:
-        assert math.isfinite(out[k]) and out[k] > 0, (k, out[k])
-
-
-def _jax_accuracy_sequence(frames, warmup, n_pass):
-    """bench.py:134-194 through the JAX engine (its steps, on these
-    frames and camera)."""
-    from rpg_open_remode_tpu.models.depthmap import Depthmap
-
+def _accuracy_sequence(eng, converged_state, frames, warmup, n_pass):
+    """bench.py:134-194 on an engine (the JAX or the port's ``Depthmap``):
+    keyframe on frame 0 with its depth bounds, ``warmup`` updates, then
+    ``n_pass`` passes over the other frames, each from the post-warm-up
+    state, one more update of the last frame, and the accuracy against
+    frame 0's ground truth. Returns the convergence map and the
+    accuracy."""
     f0 = frames[0]
     d0 = f0.depth[np.isfinite(f0.depth)]
-    images = [bench.as_u8(fr.image) for fr in frames]
-    poses = [bench._Tcw(fr) for fr in frames]
-    eng = Depthmap(160, 120, fx=CAM["fx"], cx=CAM["cx"], fy=CAM["fy"], cy=CAM["cy"],
-                   cfg=J.RemodeConfig())
+    images = [_as_u8(fr.image) for fr in frames]
+    poses = [_Tcw(fr) for fr in frames]
     eng.set_reference_image(images[0], poses[0], d0.min(), d0.max())
     for i in range(1, warmup + 1):
         eng.update(images[i], poses[i])
@@ -119,7 +65,7 @@ def _jax_accuracy_sequence(frames, warmup, n_pass):
             eng.update(images[i], poses[i])
     eng.update(images[-1], poses[-1])
     conv = eng.convergence_map()
-    converged = conv == int(J.ConvergenceState.CONVERGED)
+    converged = conv == int(converged_state)
     err = np.abs(eng.depthmap() - f0.depth)[converged]
     return conv, dict(converged_percent=100 * float(converged.mean()),
                       depth_rmse_m=float(np.sqrt(np.mean(err ** 2))),
@@ -129,38 +75,40 @@ def _jax_accuracy_sequence(frames, warmup, n_pass):
 
 def test_accuracy_sequence_matches_jax():
     frames = synthetic.generate(n_frames=23, width=160, height=120, cam=CAM, seed=1, step=0.06)
-    record = bench.Record("cpu")
-    eng, dt, latency, got = bench.stream_point(frames, CAM, RemodeConfig(), 12, 3, "cpu",
-                                               record)
-    conv, want = _jax_accuracy_sequence(frames, 12, 3)
+    cam = dict(fx=CAM["fx"], cx=CAM["cx"], fy=CAM["fy"], cy=CAM["cy"])
+    conv, got = _accuracy_sequence(Depthmap(160, 120, **cam, cfg=RemodeConfig(), device="cpu"),
+                                   ConvergenceState.CONVERGED, frames, 12, 3)
+    want_conv, want = _accuracy_sequence(J.Depthmap(160, 120, **cam, cfg=J.RemodeConfig()),
+                                         J.ConvergenceState.CONVERGED, frames, 12, 3)
     assert want["converged_percent"] > 10.0
-    assert (eng.convergence_map() == conv).mean() >= 0.999
+    assert (conv == want_conv).mean() >= 0.999
     assert abs(got["converged_percent"] - want["converged_percent"]) <= 0.1
     for k in ("depth_rmse_m", "depth_median_err_m", "within_2p6pct_range"):
         np.testing.assert_allclose(got[k], want[k], rtol=1e-3, err_msg=k)
-    assert len(record.spread["streaming"]["passes_ms_per_frame"]) == 3
-    assert dt > 0 and latency > 0
 
 
 def test_restored_passes_end_in_the_same_state():
-    """``timed_passes`` restores the snapshot before each pass; two passes
-    end in equal states, and the snapshot is untouched (no update writes
-    into a state's tensors)."""
-    frames = synthetic.generate(n_frames=8, width=96, height=72, cam=TINY["cam"], seed=1,
+    """Restoring the snapshot (``eng.state = snap``) before each pass, two
+    passes end in equal states, and the snapshot is untouched (no update
+    writes into a state's tensors)."""
+    frames = synthetic.generate(n_frames=8, width=96, height=72, cam=TINY_CAM, seed=1,
                                 step=0.06)
-    eng = bench._engine(96, 72, TINY["cam"], RemodeConfig(), "cpu")
+    cam = TINY_CAM
+    eng = Depthmap(96, 72, fx=cam["fx"], cx=cam["cx"], fy=cam["fy"], cy=cam["cy"],
+                   cfg=RemodeConfig(), device="cpu")
     d0 = frames[0].depth[np.isfinite(frames[0].depth)]
-    images = [bench.as_u8(fr.image) for fr in frames]
-    poses = [bench._Tcw(fr) for fr in frames]
+    images = [_as_u8(fr.image) for fr in frames]
+    poses = [_Tcw(fr) for fr in frames]
     eng.set_reference_image(images[0], poses[0], d0.min(), d0.max())
     for i in (1, 2):
         eng.update(images[i], poses[i])
     snap = eng.state
     before = state_to_numpy(snap)
-    steps = [lambda i=i: eng.update(images[i], poses[i]) for i in range(3, 8)]
     ends = []
     for _ in range(2):
-        bench.timed_passes(eng, snap, steps, len(steps), 1)
+        eng.state = snap
+        for i in range(3, 8):
+            eng.update(images[i], poses[i])
         ends.append(state_to_numpy(eng.state))
     for a, b in ((ends[0], ends[1]), (before, state_to_numpy(snap))):
         for k in a:
@@ -217,18 +165,6 @@ def test_roofline_point_counts_and_bounds_on_the_cpu():
     assert out["sweep_gflops_alg"] == pytest.approx(out["sweep_pairs"] * (12 * hp + 11) / 1e9)
     assert out["sweep_gflops_exec"] > out["sweep_gflops_alg"]
     assert [p[0] for p in roofline.POINTS] == ["640x480", "1280x720", "1920x1080"]
-
-
-@pytest.mark.parametrize("module", ["bench", "bench_scaling"])
-def test_bench_refuses_without_cuda(module):
-    """No CUDA and no ``--device cpu``: one JSON line with ``error``, exit 1
-    (``CUDA_VISIBLE_DEVICES`` is emptied, so no card is visible)."""
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    out = subprocess.run([sys.executable, "-m", f"rpg_open_remode_tpu_torch.{module}"],
-                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
-    assert out.returncode == 1, out.stderr
-    line = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "CUDA is not available" in line["error"]
 
 
 @pytest.mark.parametrize("main", [profile_update.main, profile_match.main, roofline.main])

@@ -38,7 +38,7 @@ def test_for_camera_equal_field_by_field(fx):
 
 def test_port_imports_no_jax():
     """Importing the port (its engine, the lifecycle, the ring, the mesh, IO,
-    CLI, the eval, the bench, scaling and profile scripts, accounting and
+    CLI, the eval, the profile and roofline scripts, accounting and
     utilities) loads no jax module and no module of the JAX
     package. The port's own name shares the prefix ``rpg_open_remode_tpu``,
     so the JAX package's modules are matched with the dot."""
@@ -55,7 +55,6 @@ def test_port_imports_no_jax():
         "from rpg_open_remode_tpu_torch.utils import image_ops, visualize\n"
         "from rpg_open_remode_tpu_torch import parallel\n"
         "from rpg_open_remode_tpu_torch import eval as port_eval\n"
-        "from rpg_open_remode_tpu_torch import bench, bench_scaling\n"
         "from rpg_open_remode_tpu_torch.scripts import profile_match, profile_update, "
         "roofline\n"
         "from rpg_open_remode_tpu_torch.testing import sweep_cases\n"
