@@ -22,18 +22,25 @@ JAX. The phases, in order:
   its rectification warps against the plain path on the CPU.
 - the fused tail (``csrc/seed_update.cu``) and the plane sweep
   (``csrc/planesweep.cu``) bit for bit against their plain versions on
-  the main path's own inputs at 640x480 and 752x480.
+  the main path's own inputs at 640x480 and 752x480; the rectified step's
+  head kernels (``csrc/rect_head.cu``) likewise on the lateral stream's
+  first updates, with the coarse gate on and off, stragglers and no valid
+  rect pixel, and ``rect_match``'s chains against the walk of the plain
+  pieces.
 - a replay of the 640x480 run under ``torch.profiler``: each kernel's
   launches in the trace held to the launch counts.
 - 1280x720 (80 frames), 752x480 and 1920x1080 (12 frames each) through
   ``Depthmap`` at ``for_camera(fx)``: launch counts, and frame 10's warps
-  (and at 1920x1080 its sweeps and the final TV-L1) bit for bit.
+  (at 1280x720 and 1920x1080 its head kernels, at 1920x1080 its sweeps and
+  the final TV-L1) bit for bit.
 - the lens-undistortion path (the 1-D resamplers of ``csrc/resample.cu``).
 - graphs: every CUDA graph replay of ``models/programs.py`` bit for bit
   against the eager ``update_step`` it captured, with equal launch counts
-  (the 640x480 run, a sequence through all three matcher regimes, the
-  undistortion run, two propagated switches, ``update_chunk`` with K = 16,
-  a ring of 4, 1280x720 and 1920x1080); 54 replayed frames and a replayed
+  (the 640x480 run, a sequence through all three matcher regimes, whose
+  replays are held to their kernels (a rectified update: the head's eight,
+  two sweeps, three warps and the tail), the undistortion run, two
+  propagated switches, ``update_chunk`` with K = 16, a ring of 4, 1280x720
+  and 1920x1080); 54 replayed frames and a replayed
   propagated switch under ``torch.cuda.set_sync_debug_mode("error")``; the
   replayed switch's warp launches in a trace.
 - the keyframe lifecycle: eval.py's keyframe-segment rows (through
@@ -101,7 +108,15 @@ COARSE_FROM = 3
 KERNEL_SYMBOLS = {"sweep": "sweep_kernel", "warp": "homography_warp_kernel",
                   "resample_rows": "resample_rows_kernel",
                   "resample_cols": "resample_cols_kernel", "tvl1": "tvl1_",
-                  "seed_update": "seed_update_kernel", "planesweep": "planesweep_match_kernel"}
+                  "seed_update": "seed_update_kernel", "planesweep": "planesweep_match_kernel",
+                  "classify": "classify_kernel", "rect_geometry": "rect_geometry_kernel",
+                  "ref_fruitless": "ref_fruitless_kernel", "ref_bands": "ref_bands_kernel",
+                  "rect_bands": "rect_bands_kernel", "rect_rebase": "rect_rebase_kernel",
+                  "coarse_narrow": "coarse_narrow_kernel", "back_stack": "back_stack_kernel"}
+# the rectified step's head kernels (csrc/rect_head.cu): one launch each a
+# rectified update (the coarse pass on: every configuration here)
+HEAD_KERNELS = ("classify", "rect_geometry", "ref_fruitless", "ref_bands", "rect_bands",
+                "rect_rebase", "coarse_narrow", "back_stack")
 # the kernels of the engine's path; the 1-D resamplers run on the
 # undistortion path (UNDISTORT)
 PATH_KERNELS = ("sweep", "warp", "tvl1", "seed_update")
@@ -399,6 +414,8 @@ def replay(torch, P, frames, cam, kernels=None, kept=None):
     warp input the engine passes to the kernels. The updates are graph
     replays (``Depthmap.update``) except on the frames that ``kept``
     watches, which take ``eager_update``. Returns (engine, denoised)."""
+    from rpg_open_remode_tpu_torch.models.state import clone
+
     f0 = frames[0]
     d0 = f0.depth[np.isfinite(f0.depth)]
     height, width = f0.image.shape
@@ -412,7 +429,10 @@ def replay(torch, P, frames, cam, kernels=None, kept=None):
         frame_hook = None
         if kept is not None and kept.get("first", COARSE_FROM) <= i <= kept["frame"]:
             if i == kept["frame"]:
-                kept.update(state=eng.state, img=fr.image, T=T)
+                # eng.state is the engine's own buffers, which later updates
+                # overwrite: ``before`` is a copy of the state this frame
+                # updates
+                kept.update(state=eng.state, before=clone(eng.state), img=fr.image, T=T)
             calls = kept.setdefault("calls", {}).setdefault(i, [])
             frame_hook = (lambda kind, args: calls.append((kind, args)))
         update = eng.update if frame_hook is None else functools.partial(eager_update, eng)
@@ -466,6 +486,9 @@ def drive(torch, P, kernels, frames, cam, keep_frame=None, first=COARSE_FROM):
     if launches["seed_update"] != len(frames) - 1:
         raise AssertionError(f"{launches['seed_update']} fused tails for {len(frames) - 1} "
                              f"updates")
+    off = {k: launches[k] for k in HEAD_KERNELS if launches[k] != len(frames) - 1}
+    if off:
+        raise AssertionError(f"head kernels launched other than once an update: {off}")
     return dict(eng=eng, kept=kept, frames=len(frames), launches=launches, accuracy=acc)
 
 
@@ -587,8 +610,9 @@ def size_run(torch, P, kernels, label, width, height, cam, n_frames):
     ``Depthmap`` at ``for_camera(fx)`` (launch counts zeroed just before,
     read just after, every kernel of the path launched): frame KEEP_FRAME's
     own sweep (full and the last coarse pass) and warp inputs, its
-    pure-rotation warp, and the final state's TV-L1, held bit for bit
-    against the plain versions. Returns the run and the max errors."""
+    pure-rotation warp, its head kernels (``run_head``) and the final
+    state's TV-L1, held bit for bit against the plain versions. Returns the
+    run and the max errors."""
     frames = make_frames(width, height, cam, n_frames)
     run = drive(torch, P, kernels, frames, cam, keep_frame=KEEP_FRAME, first=1)
     run["rendered"] = frames
@@ -596,7 +620,10 @@ def size_run(torch, P, kernels, label, width, height, cam, n_frames):
     log(f"  config for_camera({cam['fx']}): patch {cfg.patch_side}, {cfg.num_planes} "
         f"planes, disp_pad {cfg.disp_pad}")
     report_run(label, run)
-    return run, real_input_parity(torch, P, run, frame_calls(run), size=label, cpu_check=False)
+    errs = real_input_parity(torch, P, run, frame_calls(run), size=label, cpu_check=False)
+    for k, e in run_head(torch, run, label).items():
+        errs[k] = max(errs[k], e)
+    return run, errs
 
 
 # -- the profiled replay -------------------------------------------------------
@@ -1716,7 +1743,18 @@ def regimes_run(torch, P, kernels, frames):
     if host != dev or regimes != [0, 1, 2]:
         raise AssertionError("the host's regime differs from the device's, or a regime went "
                              "unvisited")
-    return dict(cmp, host=host, device=dev)
+    # each regime's replay launches: the head kernels once a rectified
+    # update, the classification alone in the other regimes
+    want = {rect_match.PURE_ROTATION: {"classify": 1, "warp": 1, "seed_update": 1},
+            rect_match.PLANE_SWEEP: {"classify": 1, "planesweep": 1, "seed_update": 1},
+            rect_match.RECTIFIED: dict.fromkeys(HEAD_KERNELS, 1) | {"sweep": 2, "warp": 3,
+                                                                    "seed_update": 1}}
+    recorded = {k[-1]: {n: c for n, c in p.launches.items() if c}
+                for k, p in prog.cache.items() if k[0] == "update"}
+    log(f"  a replay's launches by regime: {recorded}")
+    if recorded != want:
+        raise AssertionError(f"a regime's replay launches other kernels: {recorded}, want {want}")
+    return dict(cmp, host=host, device=dev, launches=recorded)
 
 
 def undistortion_graphs(torch, P, kernels, frames):
@@ -1961,6 +1999,73 @@ def planesweep_phase(torch):
     return err
 
 
+RECT_HEAD_SIZES = ((640, 480), (752, 480))
+
+
+def hold_head(errs, label, cam, cfg, state, img, T_curr_ref):
+    """``rect_head_cases.head_mismatches`` on one input: each head kernel
+    against the plain version of its piece, and ``rect_match``'s chains
+    against the walk of the plain pieces. Folds the max error per kernel
+    into ``errs`` and returns what differs."""
+    from rpg_open_remode_tpu_torch.testing import rect_head_cases as cases
+
+    found = cases.head_mismatches(cam, cfg, state, img, T_curr_ref)
+    for k, leaves in found.items():
+        e = max(float(v[1]) if isinstance(v[1], (int, float)) else float("inf")
+                for v in leaves.values())
+        errs[k] = max(errs.get(k, 0.0), e)
+    log(f"  {label}: " + ("every kernel and chain bit for bit" if not found
+                          else f"DIFFERS {found}"))
+    return found
+
+
+def rect_head_phase(torch):
+    """The head kernels (``csrc/rect_head.cu``) against their plain versions
+    on the first 5 updates of the lateral stream (``testing/rect_head_cases``)
+    at each of RECT_HEAD_SIZES, and on its straggler and no-valid cases
+    (``hold_head``). Returns the max error per kernel (0)."""
+    from rpg_open_remode_tpu_torch.ops import rect_match
+    from rpg_open_remode_tpu_torch.testing import rect_head_cases as cases
+
+    errs = dict.fromkeys(HEAD_KERNELS, 0.0)
+    bad = {}
+    gates = set()
+    for w, h in RECT_HEAD_SIZES:
+        cam, cfg, steps = cases.lateral_stream(w, h, "cuda")
+        for i, name in cases.runs(steps):
+            state, img, T_curr_ref = cases.case(steps[i], cfg, name)
+            found = hold_head(errs, f"{w}x{h} update {i + 1} {name}", cam, cfg, state, img,
+                              T_curr_ref)
+            gates.add(bool(rect_match.prepare_sweep(state, img, T_curr_ref, cam, cfg)["gate"]))
+            if found:
+                bad[(w, i, name)] = found
+    if bad or gates != {True, False}:
+        raise AssertionError(f"the head kernels differ from their plain versions: {bad}; "
+                             f"coarse gates seen {gates}")
+    return errs
+
+
+def run_head(torch, run, label):
+    """``hold_head`` on frame KEEP_FRAME of a ``drive`` run (the state it
+    updates, classified, its image and pose) at the run's own config: the
+    head's shapes at another size. Returns the max error per kernel (0)."""
+    from rpg_open_remode_tpu_torch.models.depthmap import prep_image
+    from rpg_open_remode_tpu_torch.testing import rect_head_cases as cases
+    from rpg_open_remode_tpu_torch.utils import se3
+
+    kept, eng = run["kept"], run["eng"]
+    state = cases.classified(kept["before"], eng.cfg)
+    img = prep_image(torch.as_tensor(np.asarray(kept["img"])).to(state.mu.device))
+    Tcr = se3.compose(torch.tensor(kept["T"], device=img.device), state.T_world_ref)
+    errs = dict.fromkeys(HEAD_KERNELS, 0.0)
+    found = hold_head(errs, f"{label} frame {KEEP_FRAME}, head kernels", eng.cam, eng.cfg, state,
+                      img, Tcr)
+    if found:
+        raise AssertionError(f"{label}: the head kernels differ from their plain versions: "
+                             f"{found}")
+    return errs
+
+
 # the undistortion run: a mild plumb-bob lens on the 640x480 camera, over
 # the first frames of the over_table sequence (rendered without distortion:
 # the run drives the path, its accuracy is not held)
@@ -2082,6 +2187,10 @@ def main() -> int:
           f"dolly at {', '.join(f'{w}x{h}' for w, h in PLANESWEEP_SIZES)}")
     errs["planesweep"] = planesweep_phase(torch)
 
+    phase("the rectified step's head kernels (csrc/rect_head.cu) against their plain versions "
+          "on the lateral stream's first updates, 640x480 and 752x480")
+    errs.update(rect_head_phase(torch))
+
     phase("profiler over the replayed 640x480 run (the trace's launches held to the counts)")
     launches = profile_run(torch, P, kernels, frames640, CAM_640, "640x480 run")
     if {k: launches[k] for k in PATH_KERNELS} != {k: run640["launches"][k] for k in PATH_KERNELS}:
@@ -2095,6 +2204,8 @@ def main() -> int:
     log(f"  beside the JAX hd_1280x720 row {HD_ROW}")
     for lab, args in warp_instances(frame_warps(run720), "1280x720").items():
         errs["warp"] = max(errs["warp"], check_warp(args, lab))
+    for k, e in run_head(torch, run720, "1280x720").items():
+        errs[k] = max(errs[k], e)
 
     phase(f"752x480 ({FHD_FRAMES} frames through Depthmap at for_camera({CAM_752['fx']}); "
           f"frame {KEEP_FRAME}'s warps, whose output rows end in a partial tile)")

@@ -8,7 +8,8 @@ the sources and flags, so an edited source is rebuilt.
 
 Each wrapper (``ops/sweep_cuda.py``, ``ops/warp_cuda.py``,
 ``ops/resample_cuda.py``, ``ops/denoise_cuda.py``,
-``ops/seed_update_cuda.py``, ``ops/planesweep_cuda.py``) adds to
+``ops/seed_update_cuda.py``, ``ops/planesweep_cuda.py``,
+``ops/rect_head_cuda.py``) adds to
 ``LAUNCHES[name]`` the kernel launches it makes (``count``), and nowhere
 else, so a run can show that the main path went through the kernels. The
 plane sweep also counts on the device the planes it skipped
@@ -34,7 +35,8 @@ from pathlib import Path
 
 import torch
 
-SOURCES = ("sweep.cu", "warp.cu", "resample.cu", "tvl1.cu", "seed_update.cu", "planesweep.cu")
+SOURCES = ("sweep.cu", "warp.cu", "resample.cu", "tvl1.cu", "seed_update.cu", "planesweep.cu",
+           "rect_head.cu")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 # -fmad=false: no FMA contraction, so each kernel rounds every operation as
@@ -48,7 +50,9 @@ NVCC_FLAGS = (
 
 # launches per kernel; plain integers, reset with reset_launches()
 LAUNCHES = {"sweep": 0, "warp": 0, "resample_rows": 0, "resample_cols": 0, "tvl1": 0,
-            "seed_update": 0, "planesweep": 0}
+            "seed_update": 0, "planesweep": 0, "classify": 0, "rect_geometry": 0,
+            "ref_fruitless": 0, "ref_bands": 0, "rect_bands": 0, "rect_rebase": 0,
+            "coarse_narrow": 0, "back_stack": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,6 +68,14 @@ _SIGNATURES = {
     "remode_seed_update": [_P] * 30 + [_I, _I, _F, _I, _F, _I, _F, _I, _P],
     "remode_planesweep": [_P] * 18 + [_I] * 6 + [_F] * 8 + [_I, _P],
     "remode_planesweep_plane_counts": [_P, _I],
+    "remode_classify": [_P] * 5 + [_I] * 3 + [_F] * 2 + [_P],
+    "remode_rect_geometry": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+    "remode_ref_fruitless": [_P, _P, _I, _F, _P],
+    "remode_ref_bands": [_P] * 10 + [_I, _F, _F, _I, _F, _F, _F, _F, _P],
+    "remode_rect_bands": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
+    "remode_rect_rebase": [_P] * 16 + [_I] * 3 + [_F, _F, _I, _P],
+    "remode_coarse_narrow": [_P] * 5 + [_I, _I, _F, _P],
+    "remode_back_stack": [_P] * 5 + [_I, _P],
 }
 
 _lib = None

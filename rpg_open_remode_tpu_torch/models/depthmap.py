@@ -73,14 +73,12 @@ def update_step(state: SeedState, curr_img, T_curr_world, cam: PinholeCamera,
     the rectified matcher's branch (``rect_match.regime_index``); None
     reads the device's choice on the host."""
     curr_img = prep_image(curr_img)
-    height, width = curr_img.shape
     T_curr_ref = se3.compose(T_curr_world, state.T_world_ref)
     dist_from_ref = torch.linalg.norm(se3.translation(T_curr_ref))
 
-    # 1. classify (seedCheckKernel)
-    border = seed_check.border_mask(height, width, cfg, device=curr_img.device)
-    conv1 = seed_check.classify_seeds(
-        state.mu, state.sigma_sq, state.a, state.b, state.scene.epsilon, border, cfg
+    # 1. classify (seedCheckKernel): one kernel on the card
+    conv1 = seed_check.classify(
+        state.mu, state.sigma_sq, state.a, state.b, state.scene.epsilon, cfg
     )
     state = dataclasses.replace(state, conv=conv1)
 

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from rpg_open_remode_tpu_torch.config import ConvergenceState, RemodeConfig
+from rpg_open_remode_tpu_torch.ops import rect_head_cuda
 
 
 def border_mask(height: int, width: int, cfg: RemodeConfig, device=None) -> torch.Tensor:
@@ -32,3 +33,13 @@ def classify_seeds(mu, sigma_sq, a, b, epsilon, border, cfg: RemodeConfig) -> to
     )
     out = torch.where(converged, int(ConvergenceState.CONVERGED), out)
     return torch.where(border, int(ConvergenceState.BORDER), out).to(torch.int32)
+
+
+def classify(mu, sigma_sq, a, b, epsilon, cfg: RemodeConfig) -> torch.Tensor:
+    """``classify_seeds`` with the ``border_mask`` of the image; on the card
+    one kernel (``ops/rect_head_cuda``)."""
+    if mu.is_cuda:
+        return rect_head_cuda.classify(mu, sigma_sq, a, b, epsilon, cfg)
+    h, w = mu.shape
+    return classify_seeds(mu, sigma_sq, a, b, epsilon, border_mask(h, w, cfg, device=mu.device),
+                          cfg)
